@@ -1,0 +1,23 @@
+from deepcharuco_tpu_torch.ops.image import (bgr_to_gray, downsample2x,
+                                            normalize_gray, preprocess_bgr)
+from deepcharuco_tpu_torch.ops.decode import (
+    pred_argmax,
+    label_to_keypoints,
+    pred_to_keypoints,
+    heatmap_argmax2d,
+    refine_keypoints,
+)
+from deepcharuco_tpu_torch.ops.patches import extract_patches
+
+__all__ = [
+    "bgr_to_gray",
+    "downsample2x",
+    "normalize_gray",
+    "preprocess_bgr",
+    "pred_argmax",
+    "label_to_keypoints",
+    "pred_to_keypoints",
+    "heatmap_argmax2d",
+    "refine_keypoints",
+    "extract_patches",
+]

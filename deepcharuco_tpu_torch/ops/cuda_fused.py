@@ -1,0 +1,139 @@
+"""Fused detector-head + decode kernel (``csrc/fused_head_decode.cu``), its
+parameter fold and its plain version.
+
+The CUDA counterpart of ``deepcharuco_tpu.ops.pallas_fused``: detector trunk
+features (N, Hc, Wc, 128) → keypoints (N, n_ids, 2) float32 and valid
+(N, n_ids) bool, the contract of ``pred_to_keypoints``. Invalid slots hold
+(0, 0).
+
+:func:`fused_head_decode` launches the kernel for CUDA tensors and runs
+:func:`fused_head_decode_plain` for CPU tensors; nothing else chooses
+between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from deepcharuco_tpu_torch import _build
+from deepcharuco_tpu_torch.ops.cuda_decode import decode_plain
+
+launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def fold_head_params(variables: Dict, n_ids: int = 16) -> Dict[str, torch.Tensor]:
+    """Fold BatchNorm (inference affine) into the head conv weights, in numpy.
+
+    ``variables`` is the JAX-layout tree of numpy arrays (``weights.
+    variables_from_npz`` or ``weights.detector_variables``). Returns CPU
+    tensors with the keys and shapes of the JAX package's fold:
+    wpa/wda (9·128, 256) bf16 with 3×3 taps stacked row-major (ky·3+kx),
+    bpa/bda (1, 256) f32, wh = [wpa | wda] (9·128, 512) bf16,
+    wpb (256, 65) bf16, bpb (1, 65) f32, wdb (256, n_ids+1) bf16,
+    bdb (1, n_ids+1) f32.
+    """
+    p = variables["params"]
+    s = variables["batch_stats"]
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32))
+    bf16 = lambda a: f32(a).to(torch.bfloat16)
+
+    def fold(name):
+        k = np.asarray(p[name]["conv"]["kernel"], np.float32)   # (3,3,Cin,Cout)
+        b = np.asarray(p[name]["conv"]["bias"], np.float32)
+        gamma = np.asarray(p[name]["bn"]["scale"], np.float32)
+        beta = np.asarray(p[name]["bn"]["bias"], np.float32)
+        mean = np.asarray(s[name]["bn"]["mean"], np.float32)
+        var = np.asarray(s[name]["bn"]["var"], np.float32)
+        scale = gamma / np.sqrt(var + 1e-5)
+        kf = k * scale
+        bf = (b - mean) * scale + beta
+        return bf16(kf.reshape(9 * k.shape[2], k.shape[3])), f32(bf[None, :])
+
+    wpa, bpa = fold("convPa")
+    wda, bda = fold("convDa")
+    return dict(
+        wpa=wpa, bpa=bpa, wda=wda, bda=bda, wh=torch.cat([wpa, wda], dim=1),
+        wpb=bf16(np.asarray(p["convPb"]["kernel"])[0, 0]),
+        bpb=f32(np.asarray(p["convPb"]["bias"])[None, :]),
+        wdb=bf16(np.asarray(p["convDb"]["kernel"])[0, 0]),
+        bdb=f32(np.asarray(p["convDb"]["bias"])[None, :]),
+    )
+
+
+def fused_head_decode_plain(trunk: torch.Tensor, folded: Dict[str, torch.Tensor],
+                            n_ids: int = 16, min_margin: Optional[float] = None):
+    """The kernel's function in plain PyTorch (same contract, same device).
+
+    bf16 × bf16 products are summed in float32: both operands are upcast
+    before the matmul (a bf16 matmul would round its output), and the ReLU
+    output is rounded to bf16 before the 1×1 convs, as in the kernel."""
+    n, hc, wc, cin = trunk.shape
+    x = trunk.to(torch.bfloat16).float()
+    xpad = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    patch = torch.cat([xpad[:, ky:ky + hc, kx:kx + wc, :]
+                       for ky in range(3) for kx in range(3)], dim=-1)
+    pd = patch.reshape(n, hc * wc, 9 * cin) @ folded["wh"].float()
+    half = pd.shape[-1] // 2
+    p_act = torch.relu(pd[..., :half] + folded["bpa"]).to(torch.bfloat16).float()
+    d_act = torch.relu(pd[..., half:] + folded["bda"]).to(torch.bfloat16).float()
+    loc = p_act @ folded["wpb"].float() + folded["bpb"]
+    ids = d_act @ folded["wdb"].float() + folded["bdb"]
+    return decode_plain(loc.reshape(n, hc, wc, -1), ids.reshape(n, hc, wc, -1),
+                        n_ids, min_margin)
+
+
+def _fn():
+    lib = _build.library("fused_head_decode")
+    fn = lib.dc_fused_head_decode
+    fn.argtypes = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P, _P, _P]
+    fn.restype = _I
+    return lib, fn
+
+
+def fused_head_decode(trunk: torch.Tensor, folded: Dict[str, torch.Tensor],
+                      n_ids: int = 16, min_margin: Optional[float] = None):
+    """Launch the fused kernel on the current stream (CUDA tensors), or run
+    :func:`fused_head_decode_plain` (CPU tensors). ``folded`` lies on the
+    trunk's device."""
+    global launches
+    if not trunk.is_cuda:
+        return fused_head_decode_plain(trunk, folded, n_ids, min_margin)
+    n, hc, wc, cin = trunk.shape
+    dev = trunk.device
+    expect = {"wh": ((9 * cin, 512), torch.bfloat16),
+              "bpa": ((1, 256), torch.float32), "bda": ((1, 256), torch.float32),
+              "wpb": ((256, 65), torch.bfloat16), "bpb": ((1, 65), torch.float32),
+              "wdb": ((256, n_ids + 1), torch.bfloat16),
+              "bdb": ((1, n_ids + 1), torch.float32)}
+    if trunk.dtype != torch.bfloat16 or not trunk.is_contiguous() or cin % 64:
+        raise ValueError("fused_head_decode: trunk must be contiguous bf16 NHWC "
+                         f"with channels a multiple of 64, got {trunk.dtype} "
+                         f"{tuple(trunk.shape)}")
+    if not 0 < n_ids < 32:
+        raise ValueError(f"fused_head_decode: n_ids {n_ids} out of range")
+    for key, (shape, dtype) in expect.items():
+        t = folded[key]
+        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"fused_head_decode: folded[{key!r}] must be a "
+                             f"contiguous {dtype} {shape} on {dev}")
+    kpts = torch.empty((n, n_ids, 2), dtype=torch.float32, device=dev)
+    valid = torch.empty((n, n_ids), dtype=torch.bool, device=dev)
+    lib, fn = _fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = fn(trunk.data_ptr(), *(folded[k].data_ptr() for k in
+                                    ("wh", "bpa", "bda", "wpb", "bpb", "wdb", "bdb")),
+                n, hc, wc, cin, n_ids, int(min_margin is not None),
+                0.0 if min_margin is None else float(min_margin),
+                kpts.data_ptr(), valid.data_ptr(), stream)
+    if status != 0:
+        raise RuntimeError(f"fused head kernel: {_build.error_string(lib, status)}")
+    launches += 1
+    return kpts, valid
