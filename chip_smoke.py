@@ -6,12 +6,17 @@ stopping at the first failure with a non-zero exit:
 
 1. the card's name and power limit, and the kernels' build;
 2. the decode kernel against its plain version on random logits at
-   (256, 30, 40, 65/17), with a dustbin-only frame and duplicate-id ties:
-   exact;
+   (256, 30, 40, 65/17), with a dustbin-only frame and duplicate-id ties,
+   on ragged grids (31, 37) and (29, 41) at N = 1, 3 and 256, on a
+   +0.0/−0.0 confidence tie and on a 135×240 grid (1080p frames): exact,
+   and two launches give bit-identical outputs;
 3. the fused head + decode kernel against its plain version on the shipped
-   detector's folded weights, on the fixture's trunk tiled to 256 and on
-   that trunk under seeded random noise: at most 0.5% slot and 0.5% coordinate mismatch (the two
-   sum the 1152-long products in different orders);
+   detector's folded weights, on the fixture's trunk tiled to 256, on that
+   trunk under seeded random noise, and on the trunks of tiled frames with
+   ragged grids (31, 37) and (29, 41) at N = 1, 3 and 256 and a 135×240
+   grid: at most 0.5% slot and 0.5% coordinate mismatch (the two sum the
+   1152-long products in different orders), and two launches give
+   bit-identical outputs;
 4. the port's ``InferencePipeline.detect`` on the fixture frames, with
    ``fused_head=False`` and ``True``, against the JAX package's bf16
    outputs stored in ``tests/data/torch_port_frames.npz``: at most 2% slot
@@ -20,8 +25,14 @@ stopping at the first failure with a non-zero exit:
 5. serving: each pipeline answers 8 requests of 256 unique 240×320 frames,
    every result copied to the host; the kernels' launch counts are read
    from this run;
-6. each kernel's time (CUDA events, N=256) beside its plain version's time
-   and the card's bound for the same work.
+6. each kernel's device time per call (CUDA events around replays of a
+   CUDA graph of 20 calls) and its time back to back from the host, at
+   N=256 and N=1, beside its plain version's time and the card's bound
+   for the same work, and the device operations (kernels, memsets) that
+   one call puts on the card, counted by ``torch.profiler``;
+   beside the fused kernel two yardsticks on the same trunk: the unfused
+   route (the detector's cuDNN heads, then the decode kernel) and one cuDNN
+   3×3 convolution to 512 channels.
 
 Its last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with the kernels' numbers, and ``{"ok": true, "device": {...}}``. Imports
@@ -43,6 +54,7 @@ FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_frames.npz")
 DET = os.path.join(ROOT, "artifacts", "detector_devsynth.npz")
 RN = os.path.join(ROOT, "artifacts", "refinenet_devsynth.npz")
 N, HC, WC, N_IDS = 256, 30, 40, 16
+GRIDS = [(n, hc, wc) for hc, wc in ((31, 37), (29, 41)) for n in (1, 3, 256)]
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 tensor-core FLOP/s
 
@@ -82,6 +94,49 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed, so the host's cost per call (argument checks,
+    allocation, the launch itself) is left out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def device_launches(fn):
+    """Device operations (kernels, memsets, copies) that one call of ``fn``
+    puts on the card, as ``torch.profiler`` counts them; None where the
+    profiler sees none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) or None
+
+
 def random_logits(rng):
     loc = rng.normal(size=(N, HC, WC, 65)).astype(np.float32)
     ids = rng.normal(size=(N, HC, WC, N_IDS + 1)).astype(np.float32)
@@ -97,29 +152,68 @@ def random_logits(rng):
     return loc, ids
 
 
+def grid_logits(rng, n, hc, wc):
+    loc = rng.normal(size=(n, hc, wc, 65)).astype(np.float32)
+    ids = (np.round(rng.normal(size=(n, hc, wc, N_IDS + 1)) * 2) / 2).astype(np.float32)
+    return loc, ids
+
+
+def signed_zero_logits():
+    """Id 3 claimed with confidence −0.0 by cell 517 and +0.0 by the higher
+    cells 902 and 1100 of every frame: the lowest cell must win."""
+    loc = np.zeros((3, HC, WC, 65), np.float32)
+    loc[..., 64] = -10.0
+    loc[..., 5] = 1.0
+    ids = np.full((3, HC, WC, N_IDS + 1), -5.0, np.float32)
+    for cell, zero in ((517, -0.0), (902, 0.0), (1100, -0.0)):
+        r, c = divmod(cell, WC)
+        ids[:, r, c, 3] = zero
+    return loc, ids
+
+
+def twice_equal(fn):
+    """Two launches of ``fn`` give bit-identical outputs."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def phase_decode(rng, dev):
     import torch
 
     from deepcharuco_tpu_torch.ops import cuda_decode
 
     loc_np, ids_np = random_logits(rng)
-    loc, ids = torch.from_numpy(loc_np).to(dev), torch.from_numpy(ids_np).to(dev)
+    cases = [(f"{N}×{HC}×{WC}", loc_np, ids_np)]
+    cases += [(f"{n}×{hc}×{wc}", *grid_logits(rng, n, hc, wc)) for n, hc, wc in GRIDS]
+    cases += [("±0 tie", *signed_zero_logits()), ("2×135×240", *grid_logits(rng, 2, 135, 240))]
     err = 0.0
-    for mm in (None, 0.5):
-        kk, vk = cuda_decode.decode(loc, ids, N_IDS, min_margin=mm)
-        kp, vp = cuda_decode.decode_plain(loc, ids, N_IDS, min_margin=mm)
-        torch.cuda.synchronize()
-        require(torch.equal(vk, vp), f"decode kernel: valid differs (min_margin={mm})")
-        require(torch.equal(kk, kp), f"decode kernel: keypoints differ (min_margin={mm})")
-        err = max(err, float((kk - kp).abs().max()))
-    require(not bool(vk[0].any()), "decode kernel: dustbin-only frame has a claim")
+    for tag, l_np, i_np in cases:
+        loc, ids = torch.from_numpy(l_np).to(dev), torch.from_numpy(i_np).to(dev)
+        for mm in (None, 0.5):
+            kk, vk = cuda_decode.decode(loc, ids, N_IDS, min_margin=mm)
+            kp, vp = cuda_decode.decode_plain(loc, ids, N_IDS, min_margin=mm)
+            torch.cuda.synchronize()
+            require(torch.equal(vk, vp), f"decode kernel [{tag}]: valid differs (min_margin={mm})")
+            require(torch.equal(kk, kp), f"decode kernel [{tag}]: keypoints differ (min_margin={mm})")
+            err = max(err, float((kk - kp).abs().max()))
+        require(twice_equal(lambda: cuda_decode.decode(loc, ids, N_IDS)),
+                f"decode kernel [{tag}]: two launches differ")
+        if tag == "±0 tie":
+            r, c = divmod(517, WC)
+            require(bool(vk[:, 3].all()) and kk[:, 3].tolist() == [[8 * c + 5, 8 * r]] * 3,
+                    "decode kernel: ±0 tie not broken to the lowest cell")
+        log(f"phase 2 decode kernel [{tag}]: exact (valid {int(vk.sum())}), deterministic")
+    loc, ids = torch.from_numpy(loc_np).to(dev), torch.from_numpy(ids_np).to(dev)
     kk, vk = cuda_decode.decode(loc, ids, N_IDS)
+    require(not bool(vk[0].any()), "decode kernel: dustbin-only frame has a claim")
     r, c = divmod(77, WC)
     pix = int(np.argmax(loc_np[1, r, c]))
     require(bool(vk[1, 3]) and kk[1, 3].tolist() == [8 * c + pix % 8, 8 * r + pix // 8],
             "decode kernel: tie not broken to the lowest cell")
-    log(f"phase 2 decode kernel: exact on {N} frames (valid {int(vk.sum())}), "
-        f"dustbin frame empty, tie → lowest cell; max_abs_err {err}")
+    log(f"phase 2 decode kernel: dustbin frame empty, tie → lowest cell; max_abs_err {err}")
     return err
 
 
@@ -131,23 +225,42 @@ def mismatch(kp_a, v_a, kp_b, v_b):
     return slot, coord
 
 
+def grid_frames(frames, n, hc, wc):
+    """n gray frames of (8·hc, 8·wc) pixels tiled from the fixture frames."""
+    h, w = 8 * hc, 8 * wc
+    reps = (1, -(-h // frames.shape[1]), -(-w // frames.shape[2]))
+    big = np.tile(frames, reps)[:, :h, :w]
+    return big[np.arange(n) % len(big)]
+
+
+def noisy(trunk, rng):
+    """A trunk no model gave: scaled elementwise by lognormal noise (a trunk
+    of plain random numbers makes the trained heads claim nothing)."""
+    import torch
+
+    noise = np.exp(0.3 * rng.normal(size=tuple(trunk.shape))).astype(np.float32)
+    return (trunk.float() * torch.from_numpy(noise).to(trunk.device)).to(torch.bfloat16)
+
+
 def phase_fused(rng, dev, detector, folded, frames):
     import torch
 
     from deepcharuco_tpu_torch.ops import cuda_fused
     from deepcharuco_tpu_torch.ops.image import normalize_gray
 
-    with torch.inference_mode():
-        g = normalize_gray(torch.from_numpy(frames).to(dev))
-        trunk_fix = detector(g, trunk_only=True)["trunk"].repeat(N // len(frames), 1, 1, 1)
-    # A trunk no model gave: each copy scaled elementwise by lognormal noise
-    # (a trunk of plain random numbers makes the trained heads claim nothing).
-    noise = torch.from_numpy(np.exp(0.3 * rng.normal(size=tuple(trunk_fix.shape))
-                                    ).astype(np.float32)).to(dev)
-    trunk_rnd = (trunk_fix.float() * noise).to(torch.bfloat16)
+    def trunk_of(f):
+        with torch.inference_mode():
+            return detector(normalize_gray(torch.from_numpy(f).to(dev)),
+                            trunk_only=True)["trunk"]
+
+    trunk_fix = trunk_of(frames).repeat(N // len(frames), 1, 1, 1)
+    trunk_rnd = noisy(trunk_fix, rng)
+    cases = [("fixture", trunk_fix, None), ("random", trunk_rnd, None),
+             ("random,min_margin=2", trunk_rnd, 2.0)]
+    cases += [(f"{n}×{hc}×{wc}", noisy(trunk_of(grid_frames(frames, n, hc, wc)), rng), None)
+              for n, hc, wc in GRIDS + [(1, 135, 240)]]
     err, rates = 0.0, {}
-    for tag, trunk, mm in (("fixture", trunk_fix, None), ("random", trunk_rnd, None),
-                           ("random,min_margin=2", trunk_rnd, 2.0)):
+    for tag, trunk, mm in cases:
         kk, vk = cuda_fused.fused_head_decode(trunk, folded, N_IDS, mm)
         kp, vp = cuda_fused.fused_head_decode_plain(trunk, folded, N_IDS, mm)
         torch.cuda.synchronize()
@@ -156,10 +269,12 @@ def phase_fused(rng, dev, detector, folded, frames):
         if bool(both.any()):
             err = max(err, float((kk - kp).abs().amax(-1)[both].max()))
         rates[tag] = (slot, coord)
+        same = twice_equal(lambda: cuda_fused.fused_head_decode(trunk, folded, N_IDS, mm))
         log(f"phase 3 fused kernel [{tag}]: slot mismatch {slot:.5f}, coord mismatch "
-            f"{coord:.5f}, valid {int(vk.sum())}/{vk.numel()}")
+            f"{coord:.5f}, valid {int(vk.sum())}/{vk.numel()}, deterministic {same}")
         require(slot <= 0.005 and coord <= 0.005,
                 f"fused kernel [{tag}] disagrees with its plain version: {slot}, {coord}")
+        require(same, f"fused kernel [{tag}]: two launches differ")
     return err, rates
 
 
@@ -236,9 +351,23 @@ def phase_serve(pipes, frames, rng):
     return serve, launches, batches[0]
 
 
-def phase_timing(dev, pipes, batch, folded, launches, errs):
+def unfused_heads(det, trunk):
+    """The detector's heads (cuDNN) on a trunk: the route B2 replaces."""
     import torch
 
+    from deepcharuco_tpu_torch.models.detector import to_nchw, to_nhwc
+
+    x = to_nchw(trunk)
+    loc = det.convPb(det.convPa(x))
+    ids = det.convDb(det.convDa(x))
+    return to_nhwc(loc.float()), to_nhwc(ids.float())
+
+
+def phase_timing(dev, pipes, batch, folded, launches, errs):
+    import torch
+    import torch.nn.functional as F
+
+    from deepcharuco_tpu_torch.models.detector import to_nchw
     from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
     from deepcharuco_tpu_torch.ops.image import normalize_gray
 
@@ -247,45 +376,69 @@ def phase_timing(dev, pipes, batch, folded, launches, errs):
         g = normalize_gray(torch.from_numpy(batch).to(dev))
         out = det(g)
         trunk = det(g, trunk_only=True)["trunk"]
-    loc, ids = out["loc"], out["ids"]
     saved = (cuda_decode.launches, cuda_fused.launches)
     m = HC * WC
-    out_bytes = N * N_IDS * (2 * 4 + 1)
-    dec_bytes = loc.numel() * 4 + ids.numel() * 4 + out_bytes
-    fused_flops = 2 * N * m * (9 * 128 * 512 + 256 * 65 + 256 * (N_IDS + 1))
-    fused_bytes = (trunk.numel() * 2 + out_bytes
-                   + sum(folded[k].numel() * folded[k].element_size()
-                         for k in ("wh", "bpa", "bda", "wpb", "bpb", "wdb", "bdb")))
-    rows = []
-    specs = [
-        ("decode", "deepcharuco_tpu_torch/csrc/decode.cu",
-         "deepcharuco_tpu/ops/pallas_decode.py:89",
-         lambda: cuda_decode.decode(loc, ids, N_IDS),
-         lambda: cuda_decode.decode_plain(loc, ids, N_IDS),
-         dec_bytes / PEAK_BYTES, 0.0),
-        ("fused_head_decode", "deepcharuco_tpu_torch/csrc/fused_head_decode.cu",
-         "deepcharuco_tpu/ops/pallas_fused.py:162",
-         lambda: cuda_fused.fused_head_decode(trunk, folded, N_IDS),
-         lambda: cuda_fused.fused_head_decode_plain(trunk, folded, N_IDS),
-         fused_bytes / PEAK_BYTES, fused_flops / PEAK_BF16),
-    ]
+    w512 = torch.cat([det.convPa.conv.weight, det.convDa.conv.weight]).contiguous(
+        memory_format=torch.channels_last)
+    b512 = torch.cat([det.convPa.conv.bias, det.convDa.conv.bias])
+
+    def bounds(n):
+        out_bytes = n * N_IDS * (2 * 4 + 1)
+        dec = (n * m * (65 + N_IDS + 1) * 4 + out_bytes) / PEAK_BYTES, 0.0
+        fused_flops = 2 * n * m * (9 * 128 * 512 + 256 * 65 + 256 * (N_IDS + 1))
+        fused_bytes = (n * m * 128 * 2 + out_bytes
+                       + sum(folded[k].numel() * folded[k].element_size()
+                             for k in ("wh", "bpa", "bda", "wpb", "bpb", "wdb", "bdb")))
+        return {"decode": dec, "fused_head_decode": (fused_bytes / PEAK_BYTES,
+                                                     fused_flops / PEAK_BF16)}
+
+    rows, yard = [], {}
     with torch.inference_mode():
-        for name, src, rep, kern, plain, t_bytes, t_ops in specs:
-            ms = cuda_ms(kern)
-            plain_ms = cuda_ms(plain, iters=5)
-            ms2 = cuda_ms(kern)
-            bound_s = max(t_bytes, t_ops)
-            row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                   "launches": launches[name], "max_abs_err": errs[name],
-                   "ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": 1e3 * bound_s,
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "library_ms": None}
-            log(f"phase 6 timing [{name}] N={N}: kernel {ms:.4f} / {ms2:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}), launches per batch 1")
-            rows.append(row)
+        for n in (N, 1):
+            loc, ids, tr = out["loc"][:n].contiguous(), out["ids"][:n].contiguous(), trunk[:n].contiguous()
+            x = to_nchw(tr)
+            specs = {
+                "decode": ("deepcharuco_tpu_torch/csrc/decode.cu",
+                           "deepcharuco_tpu/ops/pallas_decode.py:89",
+                           lambda: cuda_decode.decode(loc, ids, N_IDS),
+                           lambda: cuda_decode.decode_plain(loc, ids, N_IDS)),
+                "fused_head_decode": ("deepcharuco_tpu_torch/csrc/fused_head_decode.cu",
+                                      "deepcharuco_tpu/ops/pallas_fused.py:162",
+                                      lambda: cuda_fused.fused_head_decode(tr, folded, N_IDS),
+                                      lambda: cuda_fused.fused_head_decode_plain(tr, folded, N_IDS)),
+            }
+            for name, (src, rep, kern, plain) in specs.items():
+                ms = graph_ms(kern)
+                host_ms = cuda_ms(kern)
+                plain_ms = cuda_ms(plain, iters=5)
+                ms2 = graph_ms(kern)
+                t_bytes, t_ops = bounds(n)[name]
+                bound_ms = 1e3 * max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                log(f"phase 6 timing [{name}] N={n}: device {ms:.4f} / {ms2:.4f} ms per call "
+                    f"(CUDA graph: scratch memset + kernel), {host_ms:.4f} ms per call "
+                    f"back to back from the host, plain {plain_ms:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms ({by})")
+                if n == N:
+                    ops = device_launches(kern)
+                    log(f"phase 6 [{name}]: {ops} device operations per call (profiler)")
+                    rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                                 "launches": launches[name], "max_abs_err": errs[name],
+                                 "ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": by, "library_ms": None, "host_ms": host_ms,
+                                 "device_launches_per_call": ops})
+                else:
+                    row = next(r for r in rows if r["name"] == name)
+                    row.update({"n1_ms": min(ms, ms2), "n1_host_ms": host_ms,
+                                "n1_plain_ms": plain_ms, "n1_bound_ms": bound_ms})
+            unfused = graph_ms(lambda: cuda_decode.decode(*unfused_heads(det, tr), N_IDS))
+            conv512 = graph_ms(lambda: F.conv2d(x, w512, b512, padding=1))
+            yard[f"N={n}"] = {"unfused_route_ms": unfused, "cudnn_conv3x3_512_ms": conv512}
+            log(f"phase 6 yardsticks N={n} on the same trunk: unfused route (cuDNN heads + "
+                f"decode kernel) {unfused:.4f} ms, cuDNN 3×3 conv to 512 channels "
+                f"{conv512:.4f} ms (neither computes B2's whole function)")
     cuda_decode.launches, cuda_fused.launches = saved
-    return rows
+    return rows, yard
 
 
 def main() -> int:
@@ -326,9 +479,9 @@ def main() -> int:
                                          fix["frames"])
     phase_main_path(pipes, fix)
     serve, launches, batch = phase_serve(pipes, fix["frames"], rng)
-    rows = phase_timing(dev, pipes, batch, folded, launches,
-                        {"decode": dec_err, "fused_head_decode": fused_err})
-    log(json.dumps({"serve": serve, "fused_mismatch": fused_rates,
+    rows, yard = phase_timing(dev, pipes, batch, folded, launches,
+                              {"decode": dec_err, "fused_head_decode": fused_err})
+    log(json.dumps({"serve": serve, "fused_mismatch": fused_rates, "yardsticks": yard,
                     "build_s": build_s}))
     log(smi())
     log(json.dumps({"kernels": rows}))

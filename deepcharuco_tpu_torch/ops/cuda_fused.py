@@ -8,24 +8,31 @@ features (N, Hc, Wc, 128) → keypoints (N, n_ids, 2) float32 and valid
 
 :func:`fused_head_decode` launches the kernel for CUDA tensors and runs
 :func:`fused_head_decode_plain` for CPU tensors; nothing else chooses
-between them.
+between them. The kernel reads the weights in the layout of
+:func:`pack_head_params` (``wh`` transposed to K-major, the 1×1 weights
+transposed and padded), packed once on the host; :func:`unpack_head_weights`
+is its inverse. :func:`head_params` gives both the fold and the packing, as
+the wrapper takes them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from deepcharuco_tpu_torch import _build
-from deepcharuco_tpu_torch.ops.cuda_decode import decode_plain
+from deepcharuco_tpu_torch.ops.cuda_decode import check_cells, decode_plain
 
 launches = 0  # kernel launches since the last reset (see chip_smoke.py)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+LOC_PAD, IDS_PAD = 72, 32   # 1×1 output widths the kernel's wgmma tiles take
+PACKED = ("whT", "wpbT", "wdbT", "bias")
 
 
 def fold_head_params(variables: Dict, n_ids: int = 16) -> Dict[str, torch.Tensor]:
@@ -67,6 +74,47 @@ def fold_head_params(variables: Dict, n_ids: int = 16) -> Dict[str, torch.Tensor
     )
 
 
+def pack_head_params(folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``folded`` plus the layout the kernel reads, on the same device:
+
+    - ``whT`` = wh.T (512, 9·128) bf16: each output channel's K row is
+      contiguous, so a TMA box of it lands K-major, as ``wgmma`` reads B;
+    - ``wpbT`` (72, 256) and ``wdbT`` (32, 256) bf16: the 1×1 weights
+      transposed the same way, zero rows past 65 and n_ids+1;
+    - ``bias`` (256 + 256 + 72 + 32) f32: bpa, bda, bpb, bdb, zero-padded.
+    """
+    def rows(w, n):
+        t = w.t()
+        return torch.cat([t, t.new_zeros(n - t.shape[0], t.shape[1])]).contiguous()
+
+    def vec(b, n):
+        b = b.reshape(-1).float()
+        return torch.cat([b, b.new_zeros(n - b.numel())])
+
+    return dict(folded, whT=folded["wh"].t().contiguous(),
+                wpbT=rows(folded["wpb"], LOC_PAD), wdbT=rows(folded["wdb"], IDS_PAD),
+                bias=torch.cat([vec(folded["bpa"], 256), vec(folded["bda"], 256),
+                                vec(folded["bpb"], LOC_PAD), vec(folded["bdb"], IDS_PAD)]))
+
+
+def head_params(variables: Dict, n_ids: int = 16, device="cpu") -> Dict[str, torch.Tensor]:
+    """What :func:`fused_head_decode` takes, on ``device``: the fold of
+    :func:`fold_head_params` (read by the plain version) and the layout of
+    :func:`pack_head_params` (read by the kernel)."""
+    return {k: v.to(device) for k, v in pack_head_params(
+        fold_head_params(variables, n_ids)).items()}
+
+
+def unpack_head_weights(packed: Dict[str, torch.Tensor], n_ids: int = 16):
+    """Inverse of :func:`pack_head_params` for the weights and biases:
+    {wh, wpb, wdb, bpa, bda, bpb, bdb} in ``fold_head_params``' shapes."""
+    b = packed["bias"]
+    return dict(wh=packed["whT"].t(), wpb=packed["wpbT"][:65].t(),
+                wdb=packed["wdbT"][:n_ids + 1].t(), bpa=b[None, :256],
+                bda=b[None, 256:512], bpb=b[None, 512:512 + 65],
+                bdb=b[None, 512 + LOC_PAD:512 + LOC_PAD + n_ids + 1])
+
+
 def fused_head_decode_plain(trunk: torch.Tensor, folded: Dict[str, torch.Tensor],
                             n_ids: int = 16, min_margin: Optional[float] = None):
     """The kernel's function in plain PyTorch (same contract, same device).
@@ -89,10 +137,11 @@ def fused_head_decode_plain(trunk: torch.Tensor, folded: Dict[str, torch.Tensor]
                         n_ids, min_margin)
 
 
+@functools.lru_cache(maxsize=None)
 def _fn():
     lib = _build.library("fused_head_decode")
     fn = lib.dc_fused_head_decode
-    fn.argtypes = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P, _P, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P, _P, _P, _P]
     fn.restype = _I
     return lib, fn
 
@@ -100,39 +149,46 @@ def _fn():
 def fused_head_decode(trunk: torch.Tensor, folded: Dict[str, torch.Tensor],
                       n_ids: int = 16, min_margin: Optional[float] = None):
     """Launch the fused kernel on the current stream (CUDA tensors), or run
-    :func:`fused_head_decode_plain` (CPU tensors). ``folded`` lies on the
-    trunk's device."""
+    :func:`fused_head_decode_plain` (CPU tensors). ``folded`` is
+    :func:`head_params` on the trunk's device: the kernel reads its
+    :func:`pack_head_params` keys, the plain version the fold's. Grids of
+    2**24 cells or more are refused on either device."""
     global launches
+    n, hc, wc, cin = trunk.shape
+    check_cells(hc, wc)
     if not trunk.is_cuda:
         return fused_head_decode_plain(trunk, folded, n_ids, min_margin)
-    n, hc, wc, cin = trunk.shape
     dev = trunk.device
-    expect = {"wh": ((9 * cin, 512), torch.bfloat16),
-              "bpa": ((1, 256), torch.float32), "bda": ((1, 256), torch.float32),
-              "wpb": ((256, 65), torch.bfloat16), "bpb": ((1, 65), torch.float32),
-              "wdb": ((256, n_ids + 1), torch.bfloat16),
-              "bdb": ((1, n_ids + 1), torch.float32)}
-    if trunk.dtype != torch.bfloat16 or not trunk.is_contiguous() or cin % 64:
-        raise ValueError("fused_head_decode: trunk must be contiguous bf16 NHWC "
-                         f"with channels a multiple of 64, got {trunk.dtype} "
-                         f"{tuple(trunk.shape)}")
+    if (trunk.dtype != torch.bfloat16 or not trunk.is_contiguous() or cin % 64
+            or trunk.data_ptr() % 16):
+        raise ValueError("fused_head_decode: trunk must be contiguous, 16-byte aligned "
+                         "bf16 NHWC with channels a multiple of 64, got "
+                         f"{trunk.dtype} {tuple(trunk.shape)}")
     if not 0 < n_ids < 32:
         raise ValueError(f"fused_head_decode: n_ids {n_ids} out of range")
-    for key, (shape, dtype) in expect.items():
-        t = folded[key]
+    packed = {"whT": ((512, 9 * cin), torch.bfloat16),
+              "wpbT": ((LOC_PAD, 256), torch.bfloat16),
+              "wdbT": ((IDS_PAD, 256), torch.bfloat16),
+              "bias": ((512 + LOC_PAD + IDS_PAD,), torch.float32)}
+    for key, (shape, dtype) in packed.items():
+        t = folded.get(key)
+        if t is None:
+            raise ValueError(f"fused_head_decode: folded[{key!r}] is missing; "
+                             "pass head_params(...)")
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
-                or not t.is_contiguous()):
+                or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"fused_head_decode: folded[{key!r}] must be a "
-                             f"contiguous {dtype} {shape} on {dev}")
+                             f"contiguous, 16-byte aligned {dtype} {shape} on {dev}")
+    scratch = torch.zeros((n, n_ids + 1), dtype=torch.int64, device=dev)
     kpts = torch.empty((n, n_ids, 2), dtype=torch.float32, device=dev)
     valid = torch.empty((n, n_ids), dtype=torch.bool, device=dev)
     lib, fn = _fn()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = fn(trunk.data_ptr(), *(folded[k].data_ptr() for k in
-                                    ("wh", "bpa", "bda", "wpb", "bpb", "wdb", "bdb")),
-                n, hc, wc, cin, n_ids, int(min_margin is not None),
-                0.0 if min_margin is None else float(min_margin),
-                kpts.data_ptr(), valid.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        status = fn(trunk.data_ptr(), *(folded[k].data_ptr() for k in PACKED),
+                    n, hc, wc, cin, n_ids, int(min_margin is not None),
+                    0.0 if min_margin is None else float(min_margin),
+                    scratch.data_ptr(), kpts.data_ptr(), valid.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
     if status != 0:
         raise RuntimeError(f"fused head kernel: {_build.error_string(lib, status)}")
     launches += 1

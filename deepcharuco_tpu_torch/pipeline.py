@@ -30,25 +30,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from deepcharuco_tpu_torch._device import resolve_device
 from deepcharuco_tpu_torch.configs import Config
 from deepcharuco_tpu_torch.models import Detector, RefineNet
 from deepcharuco_tpu_torch.ops import (extract_patches, normalize_gray,
                                        pred_to_keypoints, preprocess_bgr,
                                        refine_keypoints)
-from deepcharuco_tpu_torch.ops.cuda_fused import fold_head_params, fused_head_decode
+from deepcharuco_tpu_torch.ops.cuda_fused import fused_head_decode, head_params
 from deepcharuco_tpu_torch.weights import (detector_state_dict, detector_variables,
                                            load_state,
                                            refinenet_state_dict, refinenet_variables,
                                            variables_from_npz)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` → the card. A CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the port's plain versions on the CPU")
-    return dev
 
 
 def _not_ported(what: str, item: str):
@@ -107,8 +99,8 @@ def two_stage_forward(detector: Detector, refinenet: Optional[RefineNet], frames
     already be. Returns (keypoints (N, n_ids, 2), valid (N, n_ids) bool,
     refined (N, n_ids, 2)) on that device; with no refinenet ``refined`` is
     the raw keypoints. ``fused_head=True`` decodes through the fused
-    head + decode kernel with ``folded`` (``fold_head_params`` of the
-    detector, on the device; folded here when None)."""
+    head + decode kernel with ``folded`` (``cuda_fused.head_params`` of the
+    detector on the device; made here when None)."""
     _check_options(decode_capacity, rn_decode, soft_refine,
                    geom=geom_board_xy is not None or geom_fill)
     dev = resolve_device(device)
@@ -116,8 +108,7 @@ def two_stage_forward(detector: Detector, refinenet: Optional[RefineNet], frames
     g = _to_gray_input(frames)
     if fused_head:
         if folded is None:
-            folded = {k: v.to(dev) for k, v in fold_head_params(
-                detector_variables(detector.state_dict()), n_ids).items()}
+            folded = head_params(detector_variables(detector.state_dict()), n_ids, dev)
         trunk = detector(g, trunk_only=True)["trunk"]
         keypoints, valid = fused_head_decode(trunk, folded, n_ids, min_margin)
     else:
@@ -202,8 +193,7 @@ class InferencePipeline:
             rn = RefineNet(dtype=compute_dtype, upsample=rn_upsample,
                            patch_size=rn_patch_size)
             self.refinenet = load_state(rn, refinenet_state_dict(rn_vars)).to(self.device).eval()
-        self.folded = ({k: v.to(self.device) for k, v in
-                        fold_head_params(det_vars, config.n_ids).items()}
+        self.folded = (head_params(det_vars, config.n_ids, self.device)
                        if fused_head else None)
 
     def detect(self, frames: np.ndarray):

@@ -131,23 +131,29 @@ def load_state(module, state_dict: Dict[str, np.ndarray]):
     return module
 
 
-def load_detector(path: str, n_ids: int = 16, dtype=None):
+def load_detector(path: str, n_ids: int = 16, dtype=None, device=None):
     """A :class:`~deepcharuco_tpu_torch.models.Detector` with the weights of
-    an ``.npz`` file, on the CPU, in eval mode."""
+    an ``.npz`` file, in eval mode, on ``device`` (None → the card; without
+    a card that raises unless ``device="cpu"``)."""
     import torch
 
+    from deepcharuco_tpu_torch._device import resolve_device
     from deepcharuco_tpu_torch.models import Detector
 
+    dev = resolve_device(device)
     det = Detector(n_ids=n_ids, dtype=dtype or torch.bfloat16)
-    return load_state(det, detector_state_dict(variables_from_npz(path))).eval()
+    return load_state(det, detector_state_dict(variables_from_npz(path))).to(dev).eval()
 
 
-def load_refinenet(path: str, dtype=None):
+def load_refinenet(path: str, dtype=None, device=None):
     """A :class:`~deepcharuco_tpu_torch.models.RefineNet` with the weights of
-    an ``.npz`` file, on the CPU, in eval mode."""
+    an ``.npz`` file, in eval mode, on ``device`` (None → the card; without
+    a card that raises unless ``device="cpu"``)."""
     import torch
 
+    from deepcharuco_tpu_torch._device import resolve_device
     from deepcharuco_tpu_torch.models import RefineNet
 
+    dev = resolve_device(device)
     rn = RefineNet(dtype=dtype or torch.bfloat16)
-    return load_state(rn, refinenet_state_dict(variables_from_npz(path))).eval()
+    return load_state(rn, refinenet_state_dict(variables_from_npz(path))).to(dev).eval()

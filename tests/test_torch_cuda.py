@@ -2,7 +2,8 @@
 
 Marked ``cuda``: each test skips (from inside the test, via the ``card``
 fixture) where there is no CUDA device. On a machine with an H100 and the
-CUDA toolkit: ``python -m pytest tests/test_torch_cuda.py -q``.
+CUDA toolkit but no JAX (``tests/conftest.py`` imports JAX):
+``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
 
 import numpy as np
@@ -15,6 +16,14 @@ from deepcharuco_tpu_torch.weights import load_detector, variables_from_npz
 
 pytestmark = pytest.mark.cuda
 N_IDS = 16
+GRIDS = [(n, hc, wc) for hc, wc in ((31, 37), (29, 41)) for n in (1, 3, 256)]
+FRAMES = "tests/data/torch_port_frames.npz"
+DET = "artifacts/detector_devsynth.npz"
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(42)
 
 
 @pytest.fixture
@@ -24,11 +33,39 @@ def card():
     return torch.device("cuda")
 
 
+DECODE_CASES = ["4x30x40"] + ["x".join(map(str, g)) for g in GRIDS] + ["2x135x240",
+                                                                         "signed_zero"]
+
+
+def _decode_inputs(rng, case):
+    """Random logits (frame 0 dustbin everywhere when there are several,
+    ids on a 0.5 grid so that confidences tie), or for ``signed_zero`` id 3
+    claimed with confidence −0.0 by cell 517 and ±0.0 by higher cells."""
+    if case == "signed_zero":
+        loc = np.zeros((3, 30, 40, 65), np.float32)
+        loc[..., 64], loc[..., 5] = -10.0, 1.0
+        ids = np.full((3, 30, 40, N_IDS + 1), -5.0, np.float32)
+        for cell, zero in ((517, -0.0), (902, 0.0), (1100, -0.0)):
+            ids[:, cell // 40, cell % 40, 3] = zero
+        return loc, ids
+    n, hc, wc = map(int, case.split("x"))
+    loc = rng.normal(size=(n, hc, wc, 65)).astype(np.float32)
+    ids = np.round(rng.normal(size=(n, hc, wc, N_IDS + 1)) * 2).astype(np.float32) / 2
+    if n > 1:
+        loc[0, ..., 64] = 10.0
+    return loc, ids
+
+
+def _twice_equal(fn):
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
 @pytest.mark.parametrize("min_margin", [None, 0.5])
-def test_decode_kernel_matches_plain(card, rng, min_margin):
-    loc = rng.normal(size=(4, 30, 40, 65)).astype(np.float32)
-    ids = np.round(rng.normal(size=(4, 30, 40, N_IDS + 1)) * 2).astype(np.float32) / 2
-    loc[0, ..., 64] = 10.0
+def test_decode_kernel_matches_plain(card, rng, min_margin, case):
+    loc, ids = _decode_inputs(rng, case)
     loc_t, ids_t = torch.from_numpy(loc).to(card), torch.from_numpy(ids).to(card)
     before = cuda_decode.launches
     kk, vk = cuda_decode.decode(loc_t, ids_t, N_IDS, min_margin)
@@ -36,19 +73,37 @@ def test_decode_kernel_matches_plain(card, rng, min_margin):
     torch.cuda.synchronize()
     assert cuda_decode.launches == before + 1
     assert torch.equal(vk, vp) and torch.equal(kk, kp)
-    assert not vk[0].any()
+    if case == "signed_zero":      # the ±0 tie goes to the lowest cell
+        assert kk[:, 3].tolist() == [[8 * (517 % 40) + 5, 8 * (517 // 40)]] * 3
+    elif len(loc) > 1:
+        assert not vk[0].any()
+    assert _twice_equal(lambda: cuda_decode.decode(loc_t, ids_t, N_IDS, min_margin))
 
 
-@pytest.mark.parametrize("min_margin", [None, 2.0])
-def test_fused_kernel_matches_plain(card, rng, min_margin):
-    folded = {k: v.to(card) for k, v in cuda_fused.fold_head_params(
-        variables_from_npz("artifacts/detector_devsynth.npz"), N_IDS).items()}
-    frames = torch.from_numpy(np.load("tests/data/torch_port_frames.npz")["frames"][:4])
-    det = load_detector("artifacts/detector_devsynth.npz").to(card)
+def _grid_trunk(card, rng, n, hc, wc):
+    """The detector's trunk of n fixture frames tiled to (8·hc, 8·wc) pixels,
+    under seeded lognormal noise."""
+    frames = np.load(FRAMES)["frames"]
+    h, w = 8 * hc, 8 * wc
+    big = np.tile(frames, (1, -(-h // frames.shape[1]), -(-w // frames.shape[2])))[:, :h, :w]
+    det = load_detector(DET, device=card)
     with torch.inference_mode():
-        trunk = det(normalize_gray(frames.to(card)), trunk_only=True)["trunk"]
+        trunk = det(normalize_gray(torch.from_numpy(big[np.arange(n) % len(big)]).to(card)),
+                    trunk_only=True)["trunk"]
     noise = np.exp(0.3 * rng.normal(size=tuple(trunk.shape))).astype(np.float32)
-    trunk = (trunk.float() * torch.from_numpy(noise).to(card)).to(torch.bfloat16)
+    return (trunk.float() * torch.from_numpy(noise).to(card)).to(torch.bfloat16)
+
+
+# (shape, min_margin, least valid slots of the plain version)
+FUSED_CASES = [((4, 30, 40), None, 16), ((4, 30, 40), 2.0, 16)] + [
+    (g, None, 8) for g in GRIDS + [(1, 135, 240)]]
+
+
+@pytest.mark.parametrize("shape,min_margin,least", FUSED_CASES,
+                         ids=lambda p: "x".join(map(str, p)) if isinstance(p, tuple) else str(p))
+def test_fused_kernel_matches_plain(card, rng, shape, min_margin, least):
+    folded = cuda_fused.head_params(variables_from_npz(DET), N_IDS, card)
+    trunk = _grid_trunk(card, rng, *shape)
     before = cuda_fused.launches
     kk, vk = cuda_fused.fused_head_decode(trunk, folded, N_IDS, min_margin)
     kp, vp = cuda_fused.fused_head_decode_plain(trunk, folded, N_IDS, min_margin)
@@ -56,10 +111,11 @@ def test_fused_kernel_matches_plain(card, rng, min_margin):
     assert cuda_fused.launches == before + 1
     # the kernel and the plain version sum in different orders: near-ties
     # may flip, at most 0.5% of slots
-    assert vp.sum() >= 16
+    assert vp.sum() >= least
     assert (vk != vp).float().mean() <= 0.005
     both = vk & vp
     assert (((kk - kp).abs().amax(-1) > 0) & both).float().mean() <= 0.005
+    assert _twice_equal(lambda: cuda_fused.fused_head_decode(trunk, folded, N_IDS, min_margin))
 
 
 def test_wrappers_reject_bad_inputs(card):
@@ -68,3 +124,12 @@ def test_wrappers_reject_bad_inputs(card):
         cuda_decode.decode(loc.double(), torch.zeros(1, 30, 40, 17, device=card), N_IDS)
     with pytest.raises(ValueError):
         cuda_fused.fused_head_decode(torch.zeros(1, 30, 40, 128, device=card), {}, N_IDS)
+    folded = {k: v.to(card) for k, v in cuda_fused.fold_head_params(
+        variables_from_npz(DET), N_IDS).items()}
+    with pytest.raises(ValueError, match="head_params"):     # not packed
+        cuda_fused.fused_head_decode(
+            torch.zeros(1, 30, 40, 128, dtype=torch.bfloat16, device=card), folded, N_IDS)
+    buf = torch.zeros(1 + 30 * 40 * 65, device=card)
+    with pytest.raises(ValueError, match="aligned"):        # 4 bytes off 16
+        cuda_decode.decode(buf[1:].view(1, 30, 40, 65),
+                           torch.zeros(1, 30, 40, 17, device=card), N_IDS)

@@ -69,12 +69,28 @@ def test_fused_plain_matches_pallas_kernel(rng, source, min_margin):
     assert (kp.numpy()[~vr] == 0).all()
 
 
-def test_fused_wrapper_runs_plain_version_on_cpu_without_launching(rng):
+@pytest.mark.parametrize("params", ["fold", "head_params"])
+def test_fused_wrapper_runs_plain_version_on_cpu_without_launching(rng, params):
     v = _variables("shipped")
     trunk = torch.from_numpy(_trunk("shipped", rng))
     folded = cuda_fused.fold_head_params(v, N_IDS)
+    given = folded if params == "fold" else cuda_fused.head_params(v, N_IDS)
     before = cuda_fused.launches
-    kp, valid = cuda_fused.fused_head_decode(trunk, folded, N_IDS)
+    kp, valid = cuda_fused.fused_head_decode(trunk, given, N_IDS)
     kq, w = cuda_fused.fused_head_decode_plain(trunk, folded, N_IDS)
     assert cuda_fused.launches == before
     assert torch.equal(kp, kq) and torch.equal(valid, w)
+
+
+@pytest.mark.parametrize("source", ["shipped", "random"])
+def test_packed_weights_unpack_bit_exact(source):
+    folded = cuda_fused.fold_head_params(_variables(source), N_IDS)
+    packed = cuda_fused.pack_head_params(folded)
+    assert packed["whT"].is_contiguous() and packed["whT"].shape == (512, 9 * 128)
+    assert not packed["wpbT"][65:].any() and not packed["wdbT"][N_IDS + 1:].any()
+    back = cuda_fused.unpack_head_weights(packed, N_IDS)
+    for key, value in back.items():
+        assert value.dtype == folded[key].dtype and value.shape == folded[key].shape, key
+        assert torch.equal(value.view(torch.int16) if value.dtype == torch.bfloat16
+                           else value, folded[key].view(torch.int16)
+                           if value.dtype == torch.bfloat16 else folded[key]), key

@@ -35,12 +35,43 @@ def test_npz_state_dict_round_trip_is_bit_exact(kind):
 def test_loaders_give_eval_modules_with_the_weights(kind):
     path, to_sd, _, _ = ARTIFACTS[kind]
     load = W.load_detector if kind == "detector" else W.load_refinenet
-    module = load(os.path.join(ROOT, path), dtype=torch.float32)
+    module = load(os.path.join(ROOT, path), dtype=torch.float32, device="cpu")
     assert not module.training
     sd = to_sd(W.variables_from_npz(os.path.join(ROOT, path)))
     got = module.state_dict()
     assert sorted(got) == sorted(sd)
     np.testing.assert_array_equal(got["conv1a.conv.weight"].numpy(), sd["conv1a.conv.weight"])
+
+
+@pytest.mark.parametrize("kind", sorted(ARTIFACTS))
+def test_loaders_refuse_the_cpu_unless_asked(kind, monkeypatch):
+    path = os.path.join(ROOT, ARTIFACTS[kind][0])
+    load = W.load_detector if kind == "detector" else W.load_refinenet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load(path)
+    with pytest.raises(RuntimeError):
+        load(path, device="cuda")
+
+
+@pytest.mark.parametrize("kind", sorted(ARTIFACTS))
+def test_loaders_on_the_cpu_give_the_same_weights(kind):
+    path, to_sd, _, _ = ARTIFACTS[kind]
+    load = W.load_detector if kind == "detector" else W.load_refinenet
+    module = load(os.path.join(ROOT, path), device="cpu")
+    sd = to_sd(W.variables_from_npz(os.path.join(ROOT, path)))
+    got = module.state_dict()
+    assert sorted(got) == sorted(sd)
+    for key, value in sd.items():
+        assert got[key].device.type == "cpu", key
+        want = torch.from_numpy(np.array(value)).to(got[key].dtype)
+        assert torch.equal(got[key], want), key
+
+
+def test_resolve_device_is_shared_by_pipeline_and_weights():
+    from deepcharuco_tpu_torch import _device, pipeline
+    assert pipeline.resolve_device is _device.resolve_device
+    assert _device.resolve_device("cpu") == torch.device("cpu")
 
 
 def _port_sources():
