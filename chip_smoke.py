@@ -32,7 +32,31 @@ stopping at the first failure with a non-zero exit:
    one call puts on the card, counted by ``torch.profiler``;
    beside the fused kernel two yardsticks on the same trunk: the unfused
    route (the detector's cuDNN heads, then the decode kernel) and one cuDNN
-   3×3 convolution to 512 channels.
+   3×3 convolution to 512 channels;
+7. pose on the fixture: ``detect_with_pose`` (bf16, 24-px hard decode, both
+   ``fused_head`` settings) against the JAX package's stored ``full_forward``
+   outputs: corners within phase 4's limits, ``ok`` different on at most one
+   frame, and on frames where ``ok`` agrees and every valid slot is within
+   0.125 px |Δrvec| ≤ 0.02 rad and |Δtvec| ≤ 0.02·|tvec|; and the port's
+   ``solve_pnp_batch`` on the stored JAX corners against the stored JAX
+   pose: ``ok`` equal, |Δrvec| ≤ 1e-3 rad, |Δtvec| ≤ 1e-3·|tvec|, |Δrms| ≤
+   1e-3 px (frames whose stored rms exceeds 10 px hold a wrong-cell corner
+   and are logged, not held);
+8. variants on the fixture against stored JAX bf16 outputs: the 32-px
+   RefineNet with ``hires=2`` and the soft decode on stored 480×640 frames
+   (at most 2 of 64 slots differ, |Δrefined| ≤ 0.125 px on ≥ 95% of the
+   agreeing slots, pose as in phase 7), ``decode_capacity=4`` and
+   ``rn_decode="avg"`` with the fixture's seeded offset branch (phase 4's
+   limits);
+9. serving the pose path: each pipeline answers 8 requests of 256 unique
+   frames through ``detect_with_pose``, and 4 through ``full_forward``, which
+   runs the tail eagerly and must give identical outputs; then the pose tail
+   alone on one batch's corners, run eagerly and replayed from the
+   pipeline's CUDA graph (host ms to enqueue, ms to finish, device
+   operations and their summed device time from ``torch.profiler``); one
+   profiled request for the card's busy share; hi-res requests (scale 2, 64
+   frames of 480×640); and the patch gather's time and peak memory at the
+   tap's sizes.
 
 Its last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with the kernels' numbers, and ``{"ok": true, "device": {...}}``. Imports
@@ -53,6 +77,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_frames.npz")
 DET = os.path.join(ROOT, "artifacts", "detector_devsynth.npz")
 RN = os.path.join(ROOT, "artifacts", "refinenet_devsynth.npz")
+RN32 = os.path.join(ROOT, "artifacts", "refinenet32_devsynth.npz")
+POSE_KEYS = ("keypoints", "valid", "refined", "ok", "rvec", "tvec", "rms")
 N, HC, WC, N_IDS = 256, 30, 40, 16
 GRIDS = [(n, hc, wc) for hc, wc in ((31, 37), (29, 41)) for n in (1, 3, 256)]
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
@@ -121,10 +147,10 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def device_launches(fn):
-    """Device operations (kernels, memsets, copies) that one call of ``fn``
-    puts on the card, as ``torch.profiler`` counts them; None where the
-    profiler sees none."""
+def device_ops(fn):
+    """(count, summed device ms) of the device operations (kernels, memsets,
+    copies) that one call of ``fn`` puts on the card, as ``torch.profiler``
+    sees them; (None, None) where it sees none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -134,7 +160,10 @@ def device_launches(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) or None
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        return None, None
+    return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3
 
 
 def random_logits(rng):
@@ -307,11 +336,11 @@ def phase_main_path(pipes, fix):
             require(slot <= 0.02 and coord <= 0.02, "[fused] disagrees with the JAX fused kernel")
 
 
-def make_batches(gray, count, rng):
+def make_batches(gray, count, rng, n=N):
     out = []
     for tag in range(count):
-        src = gray[rng.integers(0, len(gray), size=N)]
-        shifts = rng.integers(0, 32, size=N)
+        src = gray[rng.integers(0, len(gray), size=n)]
+        shifts = rng.integers(0, 32, size=n)
         b = np.stack([np.roll(f, int(s) + tag, axis=1) for f, s in zip(src, shifts)])
         noise = rng.integers(-25, 26, size=b.shape, dtype=np.int16)
         out.append(np.clip(b.astype(np.int16) + noise, 0, 255).astype(np.uint8))
@@ -420,7 +449,7 @@ def phase_timing(dev, pipes, batch, folded, launches, errs):
                     f"back to back from the host, plain {plain_ms:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({by})")
                 if n == N:
-                    ops = device_launches(kern)
+                    ops = device_ops(kern)[0]
                     log(f"phase 6 [{name}]: {ops} device operations per call (profiler)")
                     rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                                  "launches": launches[name], "max_abs_err": errs[name],
@@ -441,6 +470,272 @@ def phase_timing(dev, pipes, batch, folded, launches, errs):
     return rows, yard
 
 
+def stored(fix, tag, keys=POSE_KEYS):
+    return tuple(fix[f"{k}_{tag}"] for k in keys)
+
+
+def corners_agree(name, out, ref, slots=0.02, near_share=0.98):
+    """Hold (keypoints, valid, refined) numpy arrays to the stored JAX ones;
+    returns the per-slot mask of slots that agree and lie within 0.125 px."""
+    import torch
+
+    kp, v, r = (torch.from_numpy(np.asarray(a)) for a in out[:3])
+    kr, vr, rr = (torch.from_numpy(a) for a in ref[:3])
+    slot, coord = mismatch(kp, v, kr, vr)
+    agree = v & vr & ((kp - kr).abs().amax(-1) == 0)
+    close = (r - rr).abs().amax(-1) <= 0.125
+    near = float(close[agree].float().mean())
+    log(f"{name}: slot mismatch {slot:.4f}, coord mismatch {coord:.4f}, |Δrefined|≤0.125 "
+        f"on {near:.4f} of {int(agree.sum())} agreeing slots")
+    require(slot <= slots and coord <= slots, f"{name}: keypoints disagree with JAX")
+    require(near >= near_share, f"{name}: refined corners disagree with JAX")
+    return (agree & close).numpy()
+
+
+def pose_agrees(name, out, ref, good_slots=None, rad=0.02, rel=0.02, px=None,
+                max_rms=None):
+    """``ok`` differs on at most one frame (on none with ``good_slots`` None,
+    the solver-only check); on the frames held, |Δrvec| ≤ rad, |Δtvec| ≤
+    rel·|tvec| and, with ``px``, |Δrms| ≤ px. Held: ``ok`` true in both and,
+    given ``good_slots``, every slot valid in either within 0.125 px."""
+    v, ok, rvec, tvec, rms = (np.asarray(out[i]) for i in (1, 3, 4, 5, 6))
+    vr, ok_r, rvec_r, tvec_r, rms_r = (ref[i] for i in (1, 3, 4, 5, 6))
+    differ = int((ok != ok_r).sum())
+    held = ok & ok_r
+    if good_slots is not None:
+        held &= (good_slots | ~(v | vr)).all(-1)
+    if max_rms is not None:
+        held &= rms_r <= max_rms
+    d_r = np.abs(rvec - rvec_r).max(-1)
+    d_t = np.linalg.norm(tvec - tvec_r, axis=-1) / np.maximum(
+        np.linalg.norm(tvec_r, axis=-1), 1e-12)
+    d_rms = np.abs(np.where(held, rms - rms_r, 0.0))
+    log(f"{name}: ok differs on {differ} of {len(ok)} frames ({int(ok_r.sum())} ok in JAX); "
+        f"{int(held.sum())} frames held: max |Δrvec| {d_r[held].max(initial=0):.2e} rad, "
+        f"max |Δtvec|/|tvec| {d_t[held].max(initial=0):.2e}, max |Δrms| {d_rms.max():.2e} px; "
+        f"all frames: |Δrvec| {' '.join(f'{x:.1e}' for x in d_r)}")
+    require(differ <= (0 if good_slots is None else 1), f"{name}: ok disagrees with JAX")
+    require(held.sum() >= len(ok) // 2, f"{name}: too few frames to compare poses on")
+    require(d_r[held].max() <= rad and d_t[held].max() <= rel, f"{name}: pose disagrees")
+    require(px is None or d_rms.max() <= px, f"{name}: reprojection rms disagrees")
+    require(np.isfinite(rvec).all() and np.isfinite(tvec).all(), f"{name}: non-finite pose")
+
+
+def phase_pose_fixture(pipes, fix, dev):
+    import torch
+
+    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
+    from deepcharuco_tpu_torch.pipeline import Camera
+    from deepcharuco_tpu_torch.pnp import solve_pnp_batch
+
+    ref = stored(fix, "bf16")
+    for name, pipe in pipes.items():
+        cuda_decode.launches = cuda_fused.launches = 0
+        out = pipe.detect_with_pose(fix["frames"])
+        counts = (cuda_decode.launches, cuda_fused.launches)
+        require(len(out) == 7, f"[{name}] detect_with_pose returned {len(out)} arrays")
+        good = corners_agree(f"phase 7 pose path [{name}] vs JAX bf16", out, ref)
+        pose_agrees(f"phase 7 pose path [{name}] vs JAX bf16", out, ref, good)
+        want = (1, 0) if name == "heads+decode" else (0, 1)
+        require(counts == want, f"[{name}] kernel launches {counts}, expected {want}")
+    # the solver alone, on the corners JAX found
+    obj = next(iter(pipes.values())).object_points
+    cam_lo = Camera(K=fix["K_hi"], dist=fix["dist"]).scaled(0.5)
+    for tag, K in (("f32", fix["K"]), ("bf16", fix["K"]), ("hires_f32", cam_lo.K)):
+        ref = stored(fix, tag)
+        to = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+        got = solve_pnp_batch(obj, to(ref[2]), to(ref[1]), to(K), to(fix["dist"]))
+        out = (None, ref[1], None) + tuple(t.cpu().numpy() for t in got)
+        pose_agrees(f"phase 7 solve_pnp_batch on the stored JAX corners [{tag}]", out, ref,
+                    rad=1e-3, rel=1e-3, px=1e-3, max_rms=10.0)
+
+
+def offset_variables(rv, fix):
+    """RefineNet variables plus the fixture's seeded offset branch."""
+    rv = {coll: dict(layers) for coll, layers in rv.items()}
+    for key in fix:
+        if key.startswith("rn_offset/"):
+            _, coll, layer, *rest = key.split("/")
+            node = rv[coll].setdefault(layer, {})
+            for part in rest[:-1]:
+                node = node.setdefault(part, {})
+            node[rest[-1]] = fix[key].astype(np.float32)
+    return rv
+
+
+def phase_variants(cfg, dv, rv, fix, dev):
+    from deepcharuco_tpu_torch.pipeline import Camera, InferencePipeline, load_pipeline
+
+    cam_hi = Camera(K=fix["K_hi"], dist=fix["dist"])
+    ref = stored(fix, "hires_bf16")
+    hi_pipes = {}
+    for fused in (False, True):
+        name = f"phase 8 hires=2, 32-px, soft [fused_head={fused}] vs JAX bf16"
+        pipe = load_pipeline(cfg, DET, RN32, camera=cam_hi, rn_patch_size=32, hires=2,
+                             fused_head=fused, device=dev)
+        out = pipe.detect_with_pose(fix["frames_hi"])
+        require(np.asarray(out[2])[np.asarray(out[1])].max() < 320,
+                f"{name}: corners are not in low-res units")
+        good = corners_agree(name, out, ref, slots=2 / 64, near_share=0.95)
+        pose_agrees(name, out, ref, good)
+        hi_pipes[fused] = pipe
+    top4 = InferencePipeline(cfg, dv, rv, decode_capacity=4, device=dev)
+    out = top4.detect(fix["frames"])
+    require(out[0].shape == (8, N_IDS, 4, 2) and out[1].shape == (8, N_IDS, 4),
+            f"decode_capacity=4: shapes {out[0].shape}, {out[1].shape}")
+    corners_agree("phase 8 decode_capacity=4 vs JAX bf16", out,
+                  stored(fix, "top4", POSE_KEYS[:3]))
+    rvo = offset_variables(rv, fix)
+    for fused in (False, True):
+        avg = InferencePipeline(cfg, dv, rvo, rn_decode="avg", fused_head=fused, device=dev)
+        corners_agree(f"phase 8 rn_decode=avg [fused_head={fused}] vs JAX bf16",
+                      avg.detect(fix["frames"]),
+                      (fix["keypoints_bf16"], fix["valid_bf16"], fix["refined_avg_bf16"]))
+    return hi_pipes[False]
+
+
+def host_and_wall_ms(fn, repeats: int = 3):
+    """(ms the host takes to enqueue ``fn``'s work, ms until the card has
+    finished it), the card idle at the start; the mean of ``repeats``."""
+    import torch
+
+    host = wall = 0.0
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host += (t1 - t0) * 1e3 / repeats
+        wall += (t2 - t0) * 1e3 / repeats
+    return host, wall
+
+
+def phase_pose_serve(pipes, hi_pipe, fix, rng, dev, detect_serve):
+    import torch
+
+    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused, extract_patches
+    from deepcharuco_tpu_torch.pipeline import full_forward, two_stage_forward
+    from deepcharuco_tpu_torch.pnp import solve_pnp_batch
+
+    requests = 8
+    batches = make_batches(fix["frames"], requests * len(pipes), rng)
+    for pipe in pipes.values():          # warm-up: the pose tail's graph is captured here
+        pipe.detect_with_pose(batches[0])
+    torch.cuda.synchronize()
+    cuda_decode.launches = cuda_fused.launches = 0
+    pose = {}
+    for i, (name, pipe) in enumerate(pipes.items()):
+        t0 = time.perf_counter()
+        n_ok = 0
+        for b in batches[i * requests:(i + 1) * requests]:
+            kp, v, r, ok, rvec, tvec, rms = pipe.detect_with_pose(b)
+            require(r.shape == (N, N_IDS, 2) and ok.shape == (N,) and rvec.shape == (N, 3)
+                    and tvec.shape == (N, 3) and rms.shape == (N,)
+                    and np.isfinite(rvec).all() and np.isfinite(tvec).all()
+                    and np.isfinite(rms[ok]).all() and (tvec[ok, 2] > 0).all(),
+                    f"[{name}] bad pose output")
+            n_ok += int(ok.sum())
+        dt = time.perf_counter() - t0
+        pose[name] = {"fps": N * requests / dt, "ms_per_batch": 1e3 * dt / requests,
+                      "ok_share": n_ok / (N * requests),
+                      "detect_ms_per_batch": detect_serve[name]["ms_per_batch"]}
+        log(f"phase 9 serve pose [{name}]: {requests} requests × {N} frames: "
+            f"{pose[name]['fps']:.1f} fps, {pose[name]['ms_per_batch']:.3f} ms/batch "
+            f"(detect alone, phase 5: {detect_serve[name]['ms_per_batch']:.3f}), "
+            f"ok on {pose[name]['ok_share']:.3f} of the frames")
+        require(n_ok >= N * requests // 2, f"[{name}] the pose path solved too few frames")
+    launches = {"decode": cuda_decode.launches, "fused_head_decode": cuda_fused.launches}
+    log(f"phase 9 launches on the pose path: {launches}")
+    require(all(v >= requests for v in launches.values()),
+            f"a kernel of the pose path was not launched: {launches}")
+
+    # the same path with the tail run eagerly: the functional entry point
+    pipe = pipes["heads+decode"]
+    eager_path = lambda b: tuple(t.cpu().numpy() for t in full_forward(
+        pipe.detector, pipe.refinenet, b, N_IDS, pipe.object_points, fix["K"], fix["dist"],
+        device=dev))
+    same = all(np.array_equal(a, b, equal_nan=True) for a, b in
+               zip(eager_path(batches[0]), pipe.detect_with_pose(batches[0])))
+    require(same, "full_forward (eager tail) and detect_with_pose (graph) differ")
+    t0 = time.perf_counter()
+    for b in batches[:4]:
+        eager_path(b)
+    eager_ms = 1e3 * (time.perf_counter() - t0) / 4
+    pose["heads+decode"]["eager_tail_ms_per_batch"] = eager_ms
+    log(f"phase 9 serve pose [heads+decode] through full_forward, the tail run eagerly: "
+        f"{eager_ms:.3f} ms/batch over 4 requests, outputs identical to the graph's")
+
+    # the pose tail alone, on one batch's corners
+    _, v, r = two_stage_forward(pipe.detector, pipe.refinenet, batches[0], N_IDS, device=dev)
+    r, v = r.float().clone(), v.clone()
+    K, dist = (torch.from_numpy(fix[k]).to(dev) for k in ("K", "dist"))
+    eager = lambda: solve_pnp_batch(pipe.object_points, r, v, K, dist)
+    graph = lambda: pipe.solve_pose(r, v)
+    tail = {}
+    for tag, fn in (("eager", eager), ("graph", graph)):
+        fn()
+        host, wall = host_and_wall_ms(fn)
+        ops, busy = device_ops(fn)
+        tail[tag] = {"host_ms": host, "wall_ms": wall, "device_ops": ops,
+                     "device_busy_ms": busy}
+        log(f"phase 9 pose tail [{tag}], batch {N}: host {host:.3f} ms to enqueue, "
+            f"{wall:.3f} ms to finish, {ops} device operations, {busy:.3f} ms summed "
+            f"device time")
+    a, b = [t.clone() for t in eager()], graph()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"phase 9 pose tail: graph replay bit-identical to eager: {same}; "
+        f"ok on {int(a[0].sum())} of {N}")
+    require(all(torch.allclose(x.float(), y.float(), atol=1e-6, equal_nan=True)
+                for x, y in zip(a, b)), "the pose tail's graph disagrees with eager")
+    # one profiled request: the card's busy share of the pose path
+    for name, p in pipes.items():
+        ops, busy = device_ops(lambda: p.detect_with_pose(batches[1]))
+        wall = pose[name]["ms_per_batch"]
+        pose[name].update({"device_ops_per_batch": ops, "device_busy_ms": busy})
+        log(f"phase 9 pose path [{name}]: {ops} device operations, {busy:.3f} ms summed "
+            f"device time per batch against {wall:.3f} ms per batch served "
+            f"(idle share {max(0.0, 1 - busy / wall):.3f})")
+
+    # hi-res requests: scale 2, 64 frames of 480×640, 32-px RefineNet, soft decode
+    n_hi = 64
+    hi_batches = make_batches(fix["frames_hi"], 4, rng, n=n_hi)
+    for _ in range(2):      # warm-up: cuDNN plans at this size, the graph, the allocator
+        hi_pipe.detect_with_pose(hi_batches[0])
+    hi = {"with_pose_ms": [], "detect_ms": []}
+    for b in hi_batches[1:]:
+        for key, fn in (("with_pose_ms", hi_pipe.detect_with_pose), ("detect_ms", hi_pipe.detect)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(b)
+            hi[key].append((time.perf_counter() - t0) * 1e3)
+        require(out[2].shape == (n_hi, N_IDS, 2) and np.isfinite(out[2]).all(),
+                "bad hi-res output")
+    log(f"phase 9 hi-res request (scale 2, {n_hi} frames of 480×640): detect_with_pose "
+        f"{[round(x, 3) for x in hi['with_pose_ms']]} ms, detect "
+        f"{[round(x, 3) for x in hi['detect_ms']]} ms")
+
+    # the patch gather at the tap's sizes
+    gather = {}
+    for n, h, w, p in ((N, 240, 320, 24), (N, 480, 640, 32), (n_hi, 480, 640, 32),
+                       (N, 960, 1280, 32)):
+        g = torch.rand(n, h, w, device=dev)
+        kp = torch.rand(n, N_IDS, 2, device=dev) * torch.tensor([w, h], device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: extract_patches(g, kp, p))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        gather[f"{n}x{h}x{w},P={p}"] = {"ms": ms, "peak_mib": peak,
+                                        "patches_mib": n * N_IDS * p * p * 4 / 2 ** 20}
+        log(f"phase 9 patch gather N={n} {h}×{w} P={p}: {ms:.4f} ms, peak {peak:.1f} MiB "
+            f"above the frames ({n * N_IDS * p * p * 4 / 2 ** 20:.1f} MiB of patches)")
+        del g, kp
+    return {"serve": pose, "tail": tail, "hires": hi, "gather": gather}, launches
+
+
 def main() -> int:
     import torch
 
@@ -450,7 +745,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from deepcharuco_tpu_torch import _build
     from deepcharuco_tpu_torch.configs import default_config
-    from deepcharuco_tpu_torch.pipeline import InferencePipeline
+    from deepcharuco_tpu_torch.pipeline import Camera, InferencePipeline
     from deepcharuco_tpu_torch.weights import variables_from_npz
 
     torch.backends.cudnn.allow_tf32 = False
@@ -470,8 +765,10 @@ def main() -> int:
     fix = dict(np.load(FIXTURE))
     cfg = default_config()
     dv, rv = variables_from_npz(DET), variables_from_npz(RN)
-    pipes = {"heads+decode": InferencePipeline(cfg, dv, rv, device=dev),
-             "fused": InferencePipeline(cfg, dv, rv, fused_head=True, device=dev)}
+    cam = Camera(K=fix["K"], dist=fix["dist"])
+    pipes = {"heads+decode": InferencePipeline(cfg, dv, rv, camera=cam, device=dev),
+             "fused": InferencePipeline(cfg, dv, rv, camera=cam, fused_head=True,
+                                        device=dev)}
     folded = pipes["fused"].folded
 
     dec_err = phase_decode(rng, dev)
@@ -481,8 +778,13 @@ def main() -> int:
     serve, launches, batch = phase_serve(pipes, fix["frames"], rng)
     rows, yard = phase_timing(dev, pipes, batch, folded, launches,
                               {"decode": dec_err, "fused_head_decode": fused_err})
+    phase_pose_fixture(pipes, fix, dev)
+    hi_pipe = phase_variants(cfg, dv, rv, fix, dev)
+    pose, pose_launches = phase_pose_serve(pipes, hi_pipe, fix, rng, dev, serve)
+    for row in rows:
+        row["launches_pose_path"] = pose_launches[row["name"]]
     log(json.dumps({"serve": serve, "fused_mismatch": fused_rates, "yardsticks": yard,
-                    "build_s": build_s}))
+                    "build_s": build_s, "pose": pose}))
     log(smi())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,19 +1,22 @@
 """deepcharuco_tpu_torch — the PyTorch/CUDA port of deepcharuco_tpu.
 
-Runs the two-stage Deep ChArUco pipeline (frames → corners → sub-pixel
-corners) on an NVIDIA H100, with the JAX package's two Pallas kernels
+Runs the Deep ChArUco inference pipeline (frames → corners → sub-pixel
+corners → board pose) on an NVIDIA H100, with the JAX package's two Pallas kernels
 written by hand in CUDA C++ for ``sm_90a``. The JAX package is the
 reference; the port imports nothing of it.
 
 Layout
 ------
 - :mod:`deepcharuco_tpu_torch.configs`  — config schema (own copy)
+- :mod:`deepcharuco_tpu_torch.board`    — board geometry, the numpy part (own copy)
 - :mod:`deepcharuco_tpu_torch.weights`  — shipped ``.npz`` weights ⇄ state dicts
 - :mod:`deepcharuco_tpu_torch.models`   — Detector, RefineNet (``nn.Module``)
 - :mod:`deepcharuco_tpu_torch.ops`      — image, decode and patch ops; the
   CUDA kernels' wrappers (``cuda_decode``, ``cuda_fused``)
-- :mod:`deepcharuco_tpu_torch.pipeline` — ``two_stage_forward``,
-  ``InferencePipeline``, ``load_pipeline``
+- :mod:`deepcharuco_tpu_torch.pnp`      — batched planar PnP (camera model,
+  small linear algebra, DLT + Levenberg–Marquardt, RANSAC)
+- :mod:`deepcharuco_tpu_torch.pipeline` — ``two_stage_forward[_hires]``,
+  ``full_forward[_hires]``, ``Camera``, ``InferencePipeline``, ``load_pipeline``
 - ``csrc/`` — CUDA sources, built on first use by ``_build``
 
 Every entry point runs on the card unless the caller passes

@@ -1,14 +1,19 @@
 """RefineNet — per-corner sub-pixel refinement network.
 
-Same network as ``deepcharuco_tpu.models.RefineNet`` with its defaults: a
-24×24 gray patch centered on a detected corner goes through four VALID
-3×3 convs (24→16), a 2×2 max-pool (→8), SAME conv pairs around three
-nearest-neighbour ×2 upsamples (8→64), and a conv-BN-ReLU + 1×1 head to a
-64×64 heatmap of the central 8×8 px at 8× resolution. Channels
-64/128/128/128/64.
+Same network as ``deepcharuco_tpu.models.RefineNet``, every variant: a
+``patch_size``×``patch_size`` gray patch centered on a detected corner goes
+through four VALID 3×3 convs (24→16, or 32→24), a 2×2 max-pool (→8, or →12
+and two more VALID convs ``conv2c``/``conv2d`` →8), SAME conv pairs around
+three ×2 upsamples (8→64, nearest or bilinear), and a conv-BN-ReLU + 1×1 head
+to a 64×64 heatmap of the central 8×8 px at 8× resolution. Channels
+64/128/128/128/64. Every layer of the 24-px net keeps its name in the 32-px
+net, and the upsampling carries no parameters, so either mode loads the same
+weights.
 
-The JAX package's other variants (``patch_size=32``, ``upsample=
-"bilinear"``, ``offset_head``) are not ported yet (ROADMAP.md, A2).
+``offset_head=True`` adds the offset-regression branch on the 8×8
+bottleneck (``convOa`` → pool → ``denseOa`` → ReLU → ``denseOb``): the
+corner's (dx, dy) in image px from the patch center. The forward pass then
+returns ``{"heat", "offset"}``.
 """
 
 from __future__ import annotations
@@ -22,37 +27,59 @@ from deepcharuco_tpu_torch.models.detector import (ConvBNRelu, pool, to_nchw,
 
 
 class RefineNet(nn.Module):
-    """(N, 24, 24, 1) patch → (N, 64, 64, 1) float32 heatmap."""
+    """(N, P, P, 1) patch → (N, 64, 64, 1) float32 heatmap, P ∈ {24, 32}."""
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  upsample: str = "nearest", patch_size: int = 24,
                  offset_head: bool = False):
         super().__init__()
-        if patch_size != 24 or upsample != "nearest" or offset_head:
-            raise NotImplementedError(
-                "the port's RefineNet has patch_size=24 and nearest upsampling "
-                "only; 32-px patches, bilinear upsampling and the offset head "
-                "are open items (ROADMAP.md, A2)")
+        if patch_size not in (24, 32):
+            raise ValueError(f"patch_size must be 24 or 32, got {patch_size}")
         self.dtype = dtype
+        self.upsample = upsample
         self.patch_size = patch_size
+        self.offset_head = offset_head
         c1, c2, c3, c4, c5 = 64, 128, 128, 128, 64
         valid = lambda cin, cout: ConvBNRelu(cin, cout, 0, dtype)
         same = lambda cin, cout: ConvBNRelu(cin, cout, 1, dtype)
         self.conv1a, self.conv1b = valid(1, c1), valid(c1, c1)
         self.conv2a, self.conv2b = valid(c1, c2), valid(c2, c2)
+        if patch_size == 32:
+            self.conv2c, self.conv2d = valid(c2, c2), valid(c2, c2)
         self.conv3a, self.conv3b = same(c2, c3), same(c3, c3)
         self.conv4a, self.conv4b = same(c3, c4), same(c4, c4)
         self.conv5a, self.conv5b = same(c4, c5), same(c5, c5)
         self.convPa = same(c5, 64)
         self.convPb = nn.Conv2d(64, 1, 1, dtype=dtype)
+        if offset_head:
+            self.convOa = same(c3, 128)
+            self.denseOa = nn.Linear(4 * 4 * 128, 256, dtype=dtype)
+            self.denseOb = nn.Linear(256, 2, dtype=dtype)
+
+    def _up(self, x):
+        # any mode but "bilinear" is nearest, as in the JAX module;
+        # half-pixel centers with clamped edges are jax.image.resize's ×2
+        if self.upsample == "bilinear":
+            return F.interpolate(x, scale_factor=2, mode="bilinear",
+                                 align_corners=False)
+        return F.interpolate(x, scale_factor=2, mode="nearest")
 
     def forward(self, x):
-        up = lambda t: F.interpolate(t, scale_factor=2, mode="nearest")
         x = to_nchw(x.to(self.dtype))
         x = self.conv2b(self.conv2a(self.conv1b(self.conv1a(x))))
-        x = pool(x)
-        x = up(self.conv3b(self.conv3a(x)))
-        x = up(self.conv4b(self.conv4a(x)))
-        x = up(self.conv5b(self.conv5a(x)))
-        heat = self.convPb(self.convPa(x))
-        return to_nhwc(heat.float())
+        x = pool(x)                                  # 16 → 8, or 24 → 12
+        if self.patch_size == 32:
+            x = self.conv2d(self.conv2c(x))          # 12 → 10 → 8
+        bottleneck = self.conv3b(self.conv3a(x))     # (N, c3, 8, 8)
+        x = self._up(bottleneck)
+        x = self._up(self.conv4b(self.conv4a(x)))
+        x = self._up(self.conv5b(self.conv5a(x)))
+        heat = to_nhwc(self.convPb(self.convPa(x)).float())
+        if not self.offset_head:
+            return heat
+        o = pool(self.convOa(bottleneck))            # (N, 128, 4, 4)
+        # denseOa's 2048 inputs are ordered (row, col, channel), as the
+        # JAX module flattens its NHWC map
+        o = to_nhwc(o).flatten(1)
+        offset = self.denseOb(F.relu(self.denseOa(o)))
+        return {"heat": heat, "offset": offset.float()}

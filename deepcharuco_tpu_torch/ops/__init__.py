@@ -3,9 +3,14 @@ from deepcharuco_tpu_torch.ops.image import (bgr_to_gray, downsample2x,
 from deepcharuco_tpu_torch.ops.decode import (
     pred_argmax,
     label_to_keypoints,
+    label_to_keypoints_topk,
     pred_to_keypoints,
+    pred_to_keypoints_topk,
     heatmap_argmax2d,
     refine_keypoints,
+    soft_argmax_2d,
+    refine_keypoints_soft,
+    refine_keypoints_offset,
 )
 from deepcharuco_tpu_torch.ops.patches import extract_patches
 
@@ -16,8 +21,13 @@ __all__ = [
     "preprocess_bgr",
     "pred_argmax",
     "label_to_keypoints",
+    "label_to_keypoints_topk",
     "pred_to_keypoints",
+    "pred_to_keypoints_topk",
     "heatmap_argmax2d",
     "refine_keypoints",
+    "soft_argmax_2d",
+    "refine_keypoints_soft",
+    "refine_keypoints_offset",
     "extract_patches",
 ]

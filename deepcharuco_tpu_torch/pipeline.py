@@ -1,14 +1,21 @@
-"""The inference pipeline: frames → corners → sub-pixel corners.
+"""The inference pipeline: frames → corners → sub-pixel corners → pose.
 
-The port of ``deepcharuco_tpu.pipeline``'s main path: gray normalization,
+The port of ``deepcharuco_tpu.pipeline``: gray normalization,
 :class:`~deepcharuco_tpu_torch.models.Detector`, the fixed-capacity decode,
-the 24×24 patch gather, :class:`~deepcharuco_tpu_torch.models.RefineNet` and
-the hard-argmax sub-pixel decode. On the card the decode is a CUDA kernel:
-``fused_head=False`` runs the detector's heads and then the decode kernel
-(``ops/cuda_decode.py``); ``fused_head=True`` stops the detector at its
-trunk and runs heads + decode in one kernel (``ops/cuda_fused.py``).
+the patch gather, :class:`~deepcharuco_tpu_torch.models.RefineNet` with its
+refinement decodes, and batched planar PnP, all on the device: uint8 frames
+go in, small corner and pose arrays come out. On the card the decode is a
+CUDA kernel: ``fused_head=False`` runs the detector's heads and then the
+decode kernel (``ops/cuda_decode.py``); ``fused_head=True`` stops the
+detector at its trunk and runs heads + decode in one kernel
+(``ops/cuda_fused.py``).
 
-- :func:`two_stage_forward` — tensors in, (keypoints, valid, refined) out
+- :func:`two_stage_forward` — frames → (keypoints, valid, refined)
+- :func:`two_stage_forward_hires` — the same with the detector on a pooled
+  view and RefineNet on full-resolution patches
+- :func:`full_forward`, :func:`full_forward_hires` — + (ok, rvec, tvec,
+  reproj_rms)
+- :class:`Camera` — intrinsics in cv2 conventions
 - :class:`InferencePipeline` — holds the models, numpy in and out
 - :func:`load_pipeline` — builds one from ``.npz`` weight files
 
@@ -16,14 +23,13 @@ Every entry point takes ``device``: None means the card. Without a card it
 raises unless the caller passes ``device="cpu"``, which runs the kernels'
 plain versions.
 
-Not ported yet (``NotImplementedError``, see ROADMAP.md "Open items"):
-``decode_capacity > 1``, the geometry decode (``geom_*``), the hi-res tap,
-the soft/offset/avg refinement decodes, PnP (``camera``) and the int8
-detector.
+Not ported yet (``NotImplementedError``, see ROADMAP.md "Open items"): the
+geometry decode (``geom_*``) and the int8 detector.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional
 
@@ -31,34 +37,75 @@ import numpy as np
 import torch
 
 from deepcharuco_tpu_torch._device import resolve_device
+from deepcharuco_tpu_torch.board import inner_corner_object_points
 from deepcharuco_tpu_torch.configs import Config
 from deepcharuco_tpu_torch.models import Detector, RefineNet
-from deepcharuco_tpu_torch.ops import (extract_patches, normalize_gray,
-                                       pred_to_keypoints, preprocess_bgr,
-                                       refine_keypoints)
+from deepcharuco_tpu_torch.ops import (downsample2x, extract_patches,
+                                       normalize_gray, pred_to_keypoints,
+                                       pred_to_keypoints_topk, preprocess_bgr,
+                                       refine_keypoints, refine_keypoints_soft)
 from deepcharuco_tpu_torch.ops.cuda_fused import fused_head_decode, head_params
+from deepcharuco_tpu_torch.pnp import solve_pnp_batch
 from deepcharuco_tpu_torch.weights import (detector_state_dict, detector_variables,
                                            load_state,
                                            refinenet_state_dict, refinenet_variables,
                                            variables_from_npz)
 
 
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """Intrinsics (cv2 conventions; dist = [k1, k2, p1, p2, k3, k4, k5, k6,
+    s1, s2, s3, s4] — 4/5/8/12-coefficient vectors accepted, zero-padded)."""
+
+    K: np.ndarray
+    dist: np.ndarray
+
+    @classmethod
+    def from_npz(cls, path: str) -> "Camera":
+        """Load a ``camera_params.npz`` (``camera_matrix``,
+        ``distortion_coeffs``). cv2 emits 4, 5, 8, 12 or 14 coefficients;
+        the projection model implements the rational + thin-prism model
+        (the first 12), so those load exactly, and the 14-coefficient
+        tilted-sensor model raises: truncating it would change the camera."""
+        with np.load(path) as data:
+            raw = np.asarray(data["distortion_coeffs"], np.float32).ravel()
+            K = np.asarray(data["camera_matrix"], np.float32)
+        if raw.size not in (0, 4, 5, 8, 12):
+            raise ValueError(
+                f"{raw.size}-coefficient distortion model unsupported "
+                "(cv2 tilted-sensor τx/τy terms have no on-device "
+                "implementation); re-calibrate without CALIB_TILTED_MODEL")
+        dist = np.zeros(12, np.float32)
+        dist[: raw.size] = raw
+        return cls(K=K, dist=dist)
+
+    def scaled(self, factor: float = 0.5) -> "Camera":
+        """Intrinsics for a resampled view whose pixel grid maps as
+        x' = (x + 0.5)·factor − 0.5 (area resampling with aligned pixel
+        centers, ``ops.downsample2x``'s convention at factor 0.5): how the
+        hi-res tap expresses a camera calibrated at the input resolution in
+        pooled-view units. Distortion coefficients act on normalized
+        coordinates and carry over unchanged."""
+        K = np.array(self.K, np.float32, copy=True)
+        K[0, 0] *= factor
+        K[1, 1] *= factor
+        K[0, 2] = (K[0, 2] + 0.5) * factor - 0.5
+        K[1, 2] = (K[1, 2] + 0.5) * factor - 0.5
+        return Camera(K=K, dist=self.dist)
+
+
+# CUDA graphs of the pose tail that an InferencePipeline keeps, one per batch
+# size (a server's last, shorter batch gets its own).
+_MAX_POSE_GRAPHS = 8
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Open items {item})")
 
 
-def _check_options(decode_capacity=1, rn_decode=None, soft_refine=False,
-                   geom=False, hires=False, camera=None, det_quant=None):
-    if decode_capacity != 1:
-        _not_ported("decode_capacity > 1", "A7")
+def _check_options(geom=False, det_quant=None):
     if geom:
         _not_ported("the geometry decode (geom_*)", "A7")
-    if hires:
-        _not_ported("the hi-res patch tap", "A6")
-    if soft_refine or rn_decode not in (None, "hard"):
-        _not_ported(f"the {rn_decode or 'soft'!r} refinement decode", "A2")
-    if camera is not None:
-        _not_ported("PnP (camera, detect_with_pose, full_forward)", "A5")
     if det_quant is not None:
         _not_ported("the int8 detector", "A9")
 
@@ -78,11 +125,42 @@ def _to_gray_input(frames: torch.Tensor) -> torch.Tensor:
 
 
 def _apply_refiner(refinenet: RefineNet, patches: torch.Tensor,
-                   keypoints: torch.Tensor) -> torch.Tensor:
-    """RefineNet on the gathered patches + the hard-argmax decode."""
+                   keypoints: torch.Tensor, mode: str = "hard") -> torch.Tensor:
+    """RefineNet on the gathered patches + the decode ``mode`` selects
+    (``two_stage_forward``'s ``rn_decode``). ``keypoints`` are the integer
+    patch centers in the pixel units of the patches' frame; so is the
+    result."""
     n, k, p, _ = patches.shape
-    heat = refinenet(patches.reshape(n * k, p, p, 1)).reshape(n, k, 64, 64)
+    out = refinenet(patches.reshape(n * k, p, p, 1))
+    if isinstance(out, dict):
+        heat, offset = out["heat"], out["offset"].reshape(n, k, 2)
+    else:
+        heat, offset = out, None
+    heat = heat.reshape(n, k, 64, 64)
+    if mode in ("offset", "avg") and offset is None:
+        raise ValueError(
+            f"rn_decode={mode!r} needs RefineNet(offset_head=True) and an "
+            "offset-trained checkpoint")
+    if mode == "offset":
+        return keypoints + offset
+    if mode == "avg":
+        return 0.5 * (refine_keypoints_soft(heat, keypoints) + keypoints + offset)
+    if mode == "soft":
+        return refine_keypoints_soft(heat, keypoints)
     return refine_keypoints(heat, keypoints)
+
+
+def _decode(detector: Detector, g: torch.Tensor, n_ids: int, min_margin,
+            fused_head: bool, folded):
+    """Detector + one-slot decode on normalized gray frames."""
+    if fused_head:
+        if folded is None:
+            folded = head_params(detector_variables(detector.state_dict()), n_ids,
+                                 g.device)
+        trunk = detector(g, trunk_only=True)["trunk"]
+        return fused_head_decode(trunk, folded, n_ids, min_margin)
+    out = detector(g)
+    return pred_to_keypoints(out["loc"], out["ids"], n_ids, min_margin=min_margin)
 
 
 @torch.inference_mode()
@@ -100,25 +178,122 @@ def two_stage_forward(detector: Detector, refinenet: Optional[RefineNet], frames
     refined (N, n_ids, 2)) on that device; with no refinenet ``refined`` is
     the raw keypoints. ``fused_head=True`` decodes through the fused
     head + decode kernel with ``folded`` (``cuda_fused.head_params`` of the
-    detector on the device; made here when None)."""
-    _check_options(decode_capacity, rn_decode, soft_refine,
-                   geom=geom_board_xy is not None or geom_fill)
+    detector on the device; made here when None).
+
+    ``rn_decode`` selects the refinement decode: ``"hard"`` (argmax, the
+    default), ``"soft"`` (soft-argmax; ``soft_refine=True`` is the same),
+    ``"offset"`` (the offset-regression branch) or ``"avg"`` (the mean of
+    the soft-argmax and offset estimates); the last two need a
+    ``RefineNet(offset_head=True)``.
+
+    ``decode_capacity > 1`` switches to the duplicate-preserving decode
+    (``ops.pred_to_keypoints_topk``): K slots per id, every decoded cell
+    refined. Shapes become (N, n_ids, K, 2) / (N, n_ids, K) /
+    (N, n_ids, K, 2); slot [:, :, 0] is the default decode's winner. The
+    fused kernel keeps one winner per id, so it cannot serve this decode."""
+    _check_options(geom=geom_board_xy is not None or geom_fill)
+    if fused_head and decode_capacity > 1:
+        raise ValueError("fused_head=True decodes one winner per id in the kernel; "
+                         "decode_capacity > 1 needs fused_head=False")
     dev = resolve_device(device)
-    frames = torch.as_tensor(frames).to(dev, non_blocking=True)
-    g = _to_gray_input(frames)
-    if fused_head:
-        if folded is None:
-            folded = head_params(detector_variables(detector.state_dict()), n_ids, dev)
-        trunk = detector(g, trunk_only=True)["trunk"]
-        keypoints, valid = fused_head_decode(trunk, folded, n_ids, min_margin)
-    else:
+    g = _to_gray_input(torch.as_tensor(frames).to(dev, non_blocking=True))
+    if decode_capacity > 1:
         out = detector(g)
-        keypoints, valid = pred_to_keypoints(out["loc"], out["ids"], n_ids,
+        kp_k, valid = pred_to_keypoints_topk(out["loc"], out["ids"], n_ids,
+                                             capacity=decode_capacity,
                                              min_margin=min_margin)
+        keypoints = kp_k.reshape(kp_k.shape[0], n_ids * decode_capacity, 2)
+    else:
+        keypoints, valid = _decode(detector, g, n_ids, min_margin, fused_head, folded)
+    out_shape = valid.shape + (2,)
     if refinenet is None:
+        keypoints = keypoints.reshape(out_shape)
         return keypoints, valid, keypoints
     patches = extract_patches(g, keypoints, patch_size=refinenet.patch_size)
-    return keypoints, valid, _apply_refiner(refinenet, patches, keypoints)
+    mode = rn_decode or ("soft" if soft_refine else "hard")
+    refined = _apply_refiner(refinenet, patches, keypoints, mode)
+    return keypoints.reshape(out_shape), valid, refined.reshape(out_shape)
+
+
+@torch.inference_mode()
+def two_stage_forward_hires(detector: Detector, refinenet: RefineNet, frames_hi,
+                            n_ids: int, min_margin: Optional[float] = None,
+                            rn_decode: str = "soft", geom_board_xy=None,
+                            geom_fill: bool = False, scale: int = 2,
+                            fused_head: bool = False,
+                            folded: Optional[Dict[str, torch.Tensor]] = None,
+                            device=None):
+    """Hi-res patch tap: the detector on a ``scale``×-downsampled view,
+    RefineNet on full-resolution patches.
+
+    ``frames_hi`` are (N, s·H, s·W[, C]), e.g. the camera's native 640×480
+    when the detector runs its 320×240 grid (``scale=2``). The detector's
+    cost is unchanged (it sees the pooled view) and the refiner sees
+    ``scale``× the detail in patches of the same size.
+
+    Coordinate contract: each 2×2 average pool puts low-res center x at
+    hi-res coordinate 2x + 0.5 (``ops.downsample2x``); composed
+    log2(scale) times that is x_hi = s·x_lo + (s−1)/2, so refined hi-res
+    positions map back as (x_hi − (s−1)/2)/s. Returns (keypoints, valid,
+    refined) in LOW-res pixel units, comparable with
+    :func:`two_stage_forward`'s."""
+    _check_options(geom=geom_board_xy is not None or geom_fill)
+    if scale not in (2, 4):
+        raise ValueError(f"hires tap supports scale 2 or 4, got {scale}")
+    dev = resolve_device(device)
+    g_hi = _to_gray_input(torch.as_tensor(frames_hi).to(dev, non_blocking=True))
+    g_lo = g_hi
+    for _ in range(scale.bit_length() - 1):
+        g_lo = downsample2x(g_lo)
+    keypoints, valid = _decode(detector, g_lo, n_ids, min_margin, fused_head, folded)
+    kp_hi = float(scale) * keypoints            # integer patch centers, hi-res frame
+    patches = extract_patches(g_hi, kp_hi, patch_size=refinenet.patch_size)
+    refined_hi = _apply_refiner(refinenet, patches, kp_hi, rn_decode)
+    return keypoints, valid, (refined_hi - (scale - 1) * 0.5) / scale
+
+
+def _solve(object_points, refined, valid, K, dist, pnp_iters):
+    dev = refined.device
+    as_f32 = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)
+    return solve_pnp_batch(as_f32(object_points), refined.float(), valid,
+                           as_f32(K), as_f32(dist), iters=pnp_iters)
+
+
+@torch.inference_mode()
+def full_forward(detector: Detector, refinenet: Optional[RefineNet], frames,
+                 n_ids: int, object_points, K, dist, pnp_iters: int = 20,
+                 soft_refine: bool = False, min_margin: Optional[float] = None,
+                 rn_decode: Optional[str] = None, geom_board_xy=None,
+                 geom_fill: bool = False, fused_head: bool = False,
+                 folded: Optional[Dict[str, torch.Tensor]] = None, device=None):
+    """:func:`two_stage_forward` + batched planar PnP. Returns (keypoints,
+    valid, refined, ok (N,), rvec (N, 3), tvec (N, 3), reproj_rms (N,))."""
+    keypoints, valid, refined = two_stage_forward(
+        detector, refinenet, frames, n_ids, min_margin=min_margin,
+        soft_refine=soft_refine, rn_decode=rn_decode, geom_board_xy=geom_board_xy,
+        geom_fill=geom_fill, fused_head=fused_head, folded=folded, device=device)
+    return (keypoints, valid, refined,
+            *_solve(object_points, refined, valid, K, dist, pnp_iters))
+
+
+@torch.inference_mode()
+def full_forward_hires(detector: Detector, refinenet: RefineNet, frames_hi,
+                       n_ids: int, object_points, K, dist, pnp_iters: int = 20,
+                       min_margin: Optional[float] = None, rn_decode: str = "soft",
+                       geom_board_xy=None, geom_fill: bool = False, scale: int = 2,
+                       fused_head: bool = False,
+                       folded: Optional[Dict[str, torch.Tensor]] = None, device=None):
+    """:func:`two_stage_forward_hires` + batched planar PnP.
+
+    ``K``/``dist`` must be in the LOW-res (pooled-view) pixel units the tap
+    reports corners in: convert a camera calibrated at the hi-res input
+    resolution with ``Camera.scaled(1/scale)``."""
+    keypoints, valid, refined = two_stage_forward_hires(
+        detector, refinenet, frames_hi, n_ids, min_margin=min_margin,
+        rn_decode=rn_decode, geom_board_xy=geom_board_xy, geom_fill=geom_fill,
+        scale=scale, fused_head=fused_head, folded=folded, device=device)
+    return (keypoints, valid, refined,
+            *_solve(object_points, refined, valid, K, dist, pnp_iters))
 
 
 def _is_quantized_npz(path: Optional[str]) -> bool:
@@ -143,22 +318,27 @@ def _load_variables(ckpt: Optional[str], kind: str, n_ids: int = 16):
 
 
 def load_pipeline(config: Config, deepc_ckpt: Optional[str] = None,
-                  refinenet_ckpt: Optional[str] = None, camera=None,
+                  refinenet_ckpt: Optional[str] = None,
+                  camera: Optional[Camera] = None,
                   compute_dtype=torch.bfloat16, rn_upsample: str = "nearest",
                   rn_patch_size: int = 24, rn_decode: Optional[str] = None,
                   hires=False, geom_decode: bool = False, geom_fill: bool = False,
-                  min_margin: Optional[float] = None, fused_head: bool = False,
-                  device=None) -> "InferencePipeline":
+                  min_margin: Optional[float] = None, pnp_iters: int = 20,
+                  soft_refine: bool = False, decode_capacity: int = 1,
+                  fused_head: bool = False, device=None) -> "InferencePipeline":
     """An :class:`InferencePipeline` from ``.npz`` weight files (None → the
-    detector gets seeded random weights, the refiner is left out)."""
+    detector gets seeded random weights, the refiner is left out).
+    ``hires``: False (base resolution), True/2 (2× patch tap), or 4."""
     if _is_quantized_npz(deepc_ckpt):
         _not_ported("the int8 detector", "A9")
     dv = _load_variables(deepc_ckpt, "detector", config.n_ids)
     rv = (_load_variables(refinenet_ckpt, "refinenet")
           if refinenet_ckpt is not None else None)
     return InferencePipeline(config, dv, rv, camera=camera,
-                             compute_dtype=compute_dtype, min_margin=min_margin,
+                             compute_dtype=compute_dtype, pnp_iters=pnp_iters,
+                             soft_refine=soft_refine, min_margin=min_margin,
                              rn_upsample=rn_upsample, rn_patch_size=rn_patch_size,
+                             decode_capacity=decode_capacity,
                              rn_decode=rn_decode, hires=hires,
                              geom_decode=geom_decode, geom_fill=geom_fill,
                              fused_head=fused_head, device=device)
@@ -168,50 +348,187 @@ class InferencePipeline:
     """Holds the models on the device; numpy in, numpy out.
 
     ``det_vars``/``rn_vars`` are the JAX-layout variable trees of numpy
-    arrays that ``weights.variables_from_npz`` returns."""
+    arrays that ``weights.variables_from_npz`` returns.
 
-    def __init__(self, config: Config, det_vars, rn_vars=None, camera=None,
-                 compute_dtype=torch.bfloat16, min_margin: Optional[float] = None,
-                 soft_refine: bool = False, rn_upsample: str = "nearest",
-                 rn_patch_size: int = 24, decode_capacity: int = 1,
-                 rn_decode: Optional[str] = None, hires=False,
-                 geom_decode: bool = False, geom_fill: bool = False,
+    ``hires`` (True/2, or 4) turns on the hi-res patch tap:
+    :meth:`detect`/:meth:`detect_with_pose` then take frames at ``hires``×
+    the detector's resolution and report in LOW-res units; the camera, if
+    given, is the one calibrated at the INPUT resolution and is rescaled
+    here (:meth:`Camera.scaled`). The tap decodes ``"soft"`` unless
+    ``rn_decode`` says otherwise.
+
+    ``decode_capacity > 1`` gives :meth:`detect` K slots per id. The pose
+    path is per id by construction (object points are indexed by id), so
+    :meth:`detect_with_pose` always runs the one-slot decode."""
+
+    def __init__(self, config: Config, det_vars, rn_vars=None,
+                 camera: Optional[Camera] = None,
+                 compute_dtype=torch.bfloat16, pnp_iters: int = 20,
+                 soft_refine: bool = False, min_margin: Optional[float] = None,
+                 rn_upsample: str = "nearest", rn_patch_size: int = 24,
+                 decode_capacity: int = 1, rn_decode: Optional[str] = None,
+                 hires=False, geom_decode: bool = False, geom_fill: bool = False,
                  det_quant: Optional[str] = None, fused_head: bool = False,
                  device=None):
-        _check_options(decode_capacity, rn_decode, soft_refine,
-                       geom=geom_decode or geom_fill, hires=hires, camera=camera,
-                       det_quant=det_quant)
+        _check_options(geom=geom_decode or geom_fill, det_quant=det_quant)
+        self.hires_scale = (2 if hires is True else int(hires)) if hires else 1
+        self.hires = bool(hires)
+        if hires:
+            if self.hires_scale not in (2, 4):
+                raise ValueError(f"hires accepts True/2/4, got {hires!r}")
+            if rn_vars is None:
+                raise ValueError("hires tap needs RefineNet weights "
+                                 "(the full-res patches ARE the point)")
+            if decode_capacity > 1:
+                raise ValueError("hires does not support decode_capacity > 1")
+        if fused_head and decode_capacity > 1:
+            raise ValueError("fused_head=True decodes one winner per id in the "
+                             "kernel; decode_capacity > 1 needs fused_head=False")
         self.device = resolve_device(device)
         self.config = config
         self.n_ids = config.n_ids
         self.min_margin = min_margin
         self.fused_head = fused_head
+        self.pnp_iters = pnp_iters
+        self.decode_capacity = decode_capacity
+        self.rn_decode = (rn_decode or "soft") if hires else \
+            rn_decode or ("soft" if soft_refine else "hard")
         det = Detector(n_ids=config.n_ids, dtype=compute_dtype)
         self.detector = load_state(det, detector_state_dict(det_vars)).to(self.device).eval()
         self.refinenet = None
         if rn_vars is not None:
-            rn = RefineNet(dtype=compute_dtype, upsample=rn_upsample,
-                           patch_size=rn_patch_size)
-            self.refinenet = load_state(rn, refinenet_state_dict(rn_vars)).to(self.device).eval()
+            self.refinenet = self._refinenet(rn_vars, compute_dtype, rn_upsample,
+                                             rn_patch_size).to(self.device).eval()
         self.folded = (head_params(det_vars, config.n_ids, self.device)
                        if fused_head else None)
+        self.camera = camera
+        as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+        self.object_points = as_dev(inner_corner_object_points(
+            config.row_count, config.col_count, config.square_len))
+        self._pose_graphs: Dict[int, tuple] = {}
+        if camera is not None:
+            cam = camera.scaled(1.0 / self.hires_scale) if hires else camera
+            self._K, self._dist = as_dev(cam.K), as_dev(cam.dist)
+
+    def _refinenet(self, rn_vars, dtype, upsample, patch_size) -> RefineNet:
+        """The RefineNet variant the options ask for, with ``rn_vars``; a
+        ``ValueError`` names what the weights lack."""
+        needs_offset = self.rn_decode in ("offset", "avg")
+        params = rn_vars["params"]
+        if needs_offset and "denseOa" not in params:
+            raise ValueError(
+                f"rn_decode={self.rn_decode!r} needs RefineNet(offset_head=True) "
+                "and an offset-trained checkpoint")
+        if (patch_size == 32) != ("conv2c" in params):
+            raise ValueError(
+                f"rn_patch_size={patch_size} does not fit these RefineNet weights "
+                f"({'with' if 'conv2c' in params else 'without'} conv2c/conv2d, "
+                "the 32-px front end)")
+        rn = RefineNet(dtype=dtype, upsample=upsample, patch_size=patch_size,
+                       offset_head=needs_offset)
+        sd = refinenet_state_dict(rn_vars)
+        if not needs_offset:    # an offset branch in the weights stays unused
+            sd = {k: v for k, v in sd.items()
+                  if not k.startswith(("convOa.", "denseOa.", "denseOb."))}
+        return load_state(rn, sd)
+
+    @torch.inference_mode()
+    def solve_pose(self, refined: torch.Tensor, valid: torch.Tensor):
+        """Batched PnP on the pipeline's camera: corners (N, n_ids, 2) float32
+        and their mask, on the pipeline's device → (ok, rvec, tvec,
+        reproj_rms). On the card the solver is replayed from a CUDA graph
+        captured once per batch size: it is several thousand small
+        operations with static shapes and no host synchronisation, and run
+        eagerly it is bound by the host's launches. The outputs are then the
+        graph's own buffers, valid until the next call, so one pipeline
+        serves one thread at a time."""
+        solve = lambda r, v: _solve(self.object_points, r, v, self._K, self._dist,
+                                    self.pnp_iters)
+        if refined.device.type != "cuda":
+            return solve(refined, valid)
+        n = refined.shape[0]
+        entry = self._pose_graphs.pop(n, None)
+        if entry is None:
+            if len(self._pose_graphs) >= _MAX_POSE_GRAPHS:      # drop the oldest
+                self._pose_graphs.pop(next(iter(self._pose_graphs)))
+            with torch.cuda.device(refined.device):
+                entry = self._capture_pose(solve, refined, valid)
+        self._pose_graphs[n] = entry                            # newest last
+        graph, r_in, v_in, out = entry
+        r_in.copy_(refined)
+        v_in.copy_(valid)
+        graph.replay()
+        return out
+
+    @staticmethod
+    def _capture_pose(solve, refined, valid):
+        """(graph, its two input buffers, its outputs) of ``solve`` at the
+        shapes of ``refined``/``valid``, captured on the current device."""
+        r_in, v_in = torch.zeros_like(refined), torch.zeros_like(valid)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):           # warm-up outside the capture
+            solve(r_in, v_in)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's CUDA calls (a server's upload
+        # thread) do not invalidate the capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = solve(r_in, v_in)
+        return graph, r_in, v_in, out
+
+    def _forward(self, frames, with_pose: bool):
+        common = dict(min_margin=self.min_margin, rn_decode=self.rn_decode,
+                      fused_head=self.fused_head, folded=self.folded,
+                      device=self.device)
+        if self.hires:
+            out = two_stage_forward_hires(self.detector, self.refinenet, frames,
+                                          self.n_ids, scale=self.hires_scale, **common)
+        else:
+            if not with_pose:       # the pose path is per id: one slot
+                common.update(decode_capacity=self.decode_capacity)
+            out = two_stage_forward(self.detector, self.refinenet, frames,
+                                    self.n_ids, **common)
+        if with_pose:
+            out = (*out, *self.solve_pose(out[2].float(), out[1]))
+        return tuple(t.cpu().numpy() for t in out)
 
     def detect(self, frames: np.ndarray):
         """frames: (N,H,W,3) BGR uint8 / (N,H,W) gray →
         (keypoints, valid, refined) numpy arrays."""
-        out = two_stage_forward(self.detector, self.refinenet, frames, self.n_ids,
-                                min_margin=self.min_margin, fused_head=self.fused_head,
-                                folded=self.folded, device=self.device)
-        return tuple(t.cpu().numpy() for t in out)
+        return self._forward(frames, with_pose=False)
+
+    def detect_with_pose(self, frames: np.ndarray):
+        """→ (keypoints, valid, refined, ok, rvec, tvec, reproj_rms)."""
+        if self.camera is None:
+            raise ValueError("InferencePipeline was built without a Camera")
+        return self._forward(frames, with_pose=True)
+
+    def input_coords(self, xy: np.ndarray) -> np.ndarray:
+        """Map pipeline-output coordinates to INPUT-frame pixel units: the
+        hi-res tap reports corners in pooled-view (low-res) units, and
+        ``x_hi = s·x_lo + (s−1)/2`` puts them on the caller's full-resolution
+        frame. Identity for the base-resolution pipeline."""
+        xy = np.asarray(xy)
+        s = self.hires_scale
+        return s * xy + (s - 1) * 0.5 if self.hires else xy
 
     def keypoint_array(self, refined: np.ndarray, valid: np.ndarray):
         """One frame's keypoints + mask → (M, 3) float ``[x, y, id]`` rows
-        sorted by id."""
+        sorted by id. Takes both decode shapes: (n_ids, 2)/(n_ids,), or
+        (n_ids, K, 2)/(n_ids, K) from a ``decode_capacity > 1`` pipeline,
+        where duplicate slots become duplicate rows with the same id."""
         refined = np.asarray(refined)
-        ids = np.nonzero(np.asarray(valid))[0]
-        return np.concatenate([refined[ids], ids[:, None].astype(refined.dtype)],
-                              axis=1)
+        valid = np.asarray(valid)
+        if valid.ndim == 2:     # capacity-K decode: flatten slots
+            ids, slots = np.nonzero(valid)
+            rows = refined[ids, slots]
+        else:
+            ids = np.nonzero(valid)[0]
+            rows = refined[ids]
+        return np.concatenate([rows, ids[:, None].astype(refined.dtype)], axis=1)
 
 
-__all__ = ["InferencePipeline", "load_pipeline", "two_stage_forward",
+__all__ = ["Camera", "InferencePipeline", "load_pipeline", "two_stage_forward",
+           "two_stage_forward_hires", "full_forward", "full_forward_hires",
            "resolve_device"]

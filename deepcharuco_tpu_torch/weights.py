@@ -6,7 +6,10 @@ are '/'-joined Flax variable paths (``params/conv1a/conv/kernel``,
 and maps each layer onto the port's modules, which carry the same layer
 names: a block ``convXY`` with BatchNorm becomes ``convXY.conv`` +
 ``convXY.bn`` (running statistics included), a bare 1×1 head ``convXb`` a
-plain ``Conv2d``. Conv kernels turn from HWIO into OIHW.
+plain ``Conv2d``, a ``denseXY`` a ``Linear``. Conv kernels turn from HWIO
+into OIHW, dense kernels from (in, out) into (out, in). RefineNet's optional
+layers (``conv2c``/``conv2d`` of the 32-px net, the offset branch) are
+mapped when the weights hold them.
 """
 
 from __future__ import annotations
@@ -15,18 +18,24 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-# (layer name, has BatchNorm) — the layers of each network, in order.
-DETECTOR_BLOCKS: List[Tuple[str, bool]] = [
-    ("conv1a", True), ("conv1b", True), ("conv2a", True), ("conv2b", True),
-    ("conv3a", True), ("conv3b", True), ("conv4a", True), ("conv4b", True),
-    ("convPa", True), ("convPb", False), ("convDa", True), ("convDb", False),
+# (layer name, kind) — the layers of each network, in order. Kinds: "bn" a
+# conv with BatchNorm, "conv" a bare conv, "dense" a dense layer.
+DETECTOR_BLOCKS: List[Tuple[str, str]] = [
+    ("conv1a", "bn"), ("conv1b", "bn"), ("conv2a", "bn"), ("conv2b", "bn"),
+    ("conv3a", "bn"), ("conv3b", "bn"), ("conv4a", "bn"), ("conv4b", "bn"),
+    ("convPa", "bn"), ("convPb", "conv"), ("convDa", "bn"), ("convDb", "conv"),
 ]
 
-REFINENET_BLOCKS: List[Tuple[str, bool]] = [
-    ("conv1a", True), ("conv1b", True), ("conv2a", True), ("conv2b", True),
-    ("conv3a", True), ("conv3b", True), ("conv4a", True), ("conv4b", True),
-    ("conv5a", True), ("conv5b", True), ("convPa", True), ("convPb", False),
+REFINENET_BLOCKS: List[Tuple[str, str]] = [
+    ("conv1a", "bn"), ("conv1b", "bn"), ("conv2a", "bn"), ("conv2b", "bn"),
+    ("conv2c", "bn"), ("conv2d", "bn"),
+    ("conv3a", "bn"), ("conv3b", "bn"), ("conv4a", "bn"), ("conv4b", "bn"),
+    ("conv5a", "bn"), ("conv5b", "bn"), ("convPa", "bn"), ("convPb", "conv"),
+    ("convOa", "bn"), ("denseOa", "dense"), ("denseOb", "dense"),
 ]
+# RefineNet layers that a set of weights may lack: the 32-px front end's
+# extra convs and the offset branch.
+REFINENET_OPTIONAL = ("conv2c", "conv2d", "convOa", "denseOa", "denseOb")
 
 
 def read_npz(path: str) -> Dict[str, np.ndarray]:
@@ -60,17 +69,23 @@ def flatten_variables(variables: Dict, prefix: str = "") -> Dict[str, np.ndarray
     return flat
 
 
-def _state_dict(variables: Dict, blocks) -> Dict[str, np.ndarray]:
+def _state_dict(variables: Dict, blocks, optional=()) -> Dict[str, np.ndarray]:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, np.ndarray] = {}
-    for name, has_bn in blocks:
+    for name, kind in blocks:
+        if name in optional and name not in params:
+            continue
         p = params[name]
-        conv = p["conv"] if has_bn else p
-        prefix = f"{name}.conv" if has_bn else name
+        if kind == "dense":
+            sd[f"{name}.weight"] = np.asarray(p["kernel"]).T
+            sd[f"{name}.bias"] = np.asarray(p["bias"])
+            continue
+        conv = p["conv"] if kind == "bn" else p
+        prefix = f"{name}.conv" if kind == "bn" else name
         sd[f"{prefix}.weight"] = np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
         sd[f"{prefix}.bias"] = np.asarray(conv["bias"])
-        if has_bn:
+        if kind == "bn":
             sd[f"{name}.bn.weight"] = np.asarray(p["bn"]["scale"])
             sd[f"{name}.bn.bias"] = np.asarray(p["bn"]["bias"])
             sd[f"{name}.bn.running_mean"] = np.asarray(stats[name]["bn"]["mean"])
@@ -79,18 +94,23 @@ def _state_dict(variables: Dict, blocks) -> Dict[str, np.ndarray]:
     return sd
 
 
-def _variables(state_dict, blocks) -> Dict:
+def _variables(state_dict, blocks, optional=()) -> Dict:
     def a(key):
         v = state_dict[key]
         return v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
 
     params: Dict = {}
     stats: Dict = {}
-    for name, has_bn in blocks:
-        prefix = f"{name}.conv" if has_bn else name
+    for name, kind in blocks:
+        prefix = f"{name}.conv" if kind == "bn" else name
+        if name in optional and f"{prefix}.weight" not in state_dict:
+            continue
+        if kind == "dense":
+            params[name] = {"kernel": a(f"{name}.weight").T, "bias": a(f"{name}.bias")}
+            continue
         conv = {"kernel": a(f"{prefix}.weight").transpose(2, 3, 1, 0),
                 "bias": a(f"{prefix}.bias")}
-        if not has_bn:
+        if kind == "conv":
             params[name] = conv
             continue
         params[name] = {"conv": conv,
@@ -107,8 +127,9 @@ def detector_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
 
 
 def refinenet_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
-    """JAX-layout RefineNet variables → the port's ``RefineNet`` state dict."""
-    return _state_dict(variables, REFINENET_BLOCKS)
+    """JAX-layout RefineNet variables → the port's ``RefineNet`` state dict
+    (of the variant whose layers the variables hold)."""
+    return _state_dict(variables, REFINENET_BLOCKS, REFINENET_OPTIONAL)
 
 
 def detector_variables(state_dict) -> Dict:
@@ -118,7 +139,7 @@ def detector_variables(state_dict) -> Dict:
 
 def refinenet_variables(state_dict) -> Dict:
     """Inverse of :func:`refinenet_state_dict` (tensors or arrays in)."""
-    return _variables(state_dict, REFINENET_BLOCKS)
+    return _variables(state_dict, REFINENET_BLOCKS, REFINENET_OPTIONAL)
 
 
 def load_state(module, state_dict: Dict[str, np.ndarray]):
@@ -145,15 +166,26 @@ def load_detector(path: str, n_ids: int = 16, dtype=None, device=None):
     return load_state(det, detector_state_dict(variables_from_npz(path))).to(dev).eval()
 
 
-def load_refinenet(path: str, dtype=None, device=None):
+def refinenet_variant(variables: Dict) -> Dict:
+    """What a set of RefineNet variables fixes of the module's shape:
+    ``patch_size`` (32 when ``conv2c`` is there) and ``offset_head``."""
+    params = variables["params"]
+    return {"patch_size": 32 if "conv2c" in params else 24,
+            "offset_head": "denseOa" in params}
+
+
+def load_refinenet(path: str, dtype=None, device=None, upsample: str = "nearest"):
     """A :class:`~deepcharuco_tpu_torch.models.RefineNet` with the weights of
-    an ``.npz`` file, in eval mode, on ``device`` (None → the card; without
-    a card that raises unless ``device="cpu"``)."""
+    an ``.npz`` file (24- or 32-px, with the offset branch if the file has
+    one), in eval mode, on ``device`` (None → the card; without a card that
+    raises unless ``device="cpu"``)."""
     import torch
 
     from deepcharuco_tpu_torch._device import resolve_device
     from deepcharuco_tpu_torch.models import RefineNet
 
     dev = resolve_device(device)
-    rn = RefineNet(dtype=dtype or torch.bfloat16)
-    return load_state(rn, refinenet_state_dict(variables_from_npz(path))).to(dev).eval()
+    variables = variables_from_npz(path)
+    rn = RefineNet(dtype=dtype or torch.bfloat16, upsample=upsample,
+                   **refinenet_variant(variables))
+    return load_state(rn, refinenet_state_dict(variables)).to(dev).eval()

@@ -12,7 +12,24 @@ frames:
 - ``{keypoints,valid,refined}_f32``: the same with float32 models, as
   ``tests/test_golden.py`` builds them;
 - ``{keypoints,valid}_fused``: the bf16 trunk → ``pallas_fused_head_decode``
-  (interpret mode), the composition of ``cli/benchmark.py --fused-head``.
+  (interpret mode), the composition of ``cli/benchmark.py --fused-head``;
+- ``K``, ``dist``: a fixed camera for the 240×320 frames, and
+  ``{ok,rvec,tvec,rms}_{bf16,f32}``: the pose outputs of ``full_forward``
+  under it (its corner outputs are the arrays above);
+- ``{keypoints,valid,refined}_top4``: ``two_stage_forward`` with
+  ``decode_capacity=4``, bf16;
+- ``frames_hi``: 4 uint8 gray 480×640 views from the same synthesizer at
+  twice the resolution (``scaled_config(cfg, 2)``, ``PRNGKey(2025)``),
+  ``K_hi``: the camera at that resolution, and
+  ``{keypoints,valid,refined,ok,rvec,tvec,rms}_hires_{bf16,f32}``:
+  ``full_forward_hires`` at scale 2 with the 32-px RefineNet
+  (``artifacts/refinenet32_devsynth.npz``), the soft decode and
+  ``Camera(K_hi, dist).scaled(0.5)``;
+- ``rn_offset/...``: an offset branch (``convOa``, ``denseOa``,
+  ``denseOb``) from a seeded Flax ``init`` (``PRNGKey(7)``), stored as
+  float16 under '/'-joined variable paths, and ``refined_{offset,avg}_{bf16,f32}``:
+  ``two_stage_forward`` with that branch (cast back to float32) on top of the
+  shipped 24-px weights and ``rn_decode="offset"``/``"avg"``.
 
 Run from the repository root: ``python scripts/make_torch_port_fixture.py``.
 The file is regenerated only by this script.
@@ -32,32 +49,109 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from deepcharuco_tpu.configs import default_config  # noqa: E402
+from deepcharuco_tpu.board import inner_corner_object_points  # noqa: E402
+from deepcharuco_tpu.configs import default_config, scaled_config  # noqa: E402
 from deepcharuco_tpu.data.device_synth import DeviceSynthesizer  # noqa: E402
 from deepcharuco_tpu.models import Detector, RefineNet  # noqa: E402
 from deepcharuco_tpu.ops import normalize_gray  # noqa: E402
 from deepcharuco_tpu.ops.pallas_fused import (fold_head_params,  # noqa: E402
                                               pallas_fused_head_decode)
-from deepcharuco_tpu.pipeline import two_stage_forward, variables_from_npz  # noqa: E402
+from deepcharuco_tpu.pipeline import (Camera, full_forward, full_forward_hires,  # noqa: E402
+                                      two_stage_forward, variables_from_npz)
 
 OUT = os.path.join("tests", "data", "torch_port_frames.npz")
 DET = "artifacts/detector_devsynth.npz"
 RN = "artifacts/refinenet_devsynth.npz"
+RN32 = "artifacts/refinenet32_devsynth.npz"
+K = np.array([[420.0, 0.0, 160.0], [0.0, 420.0, 120.0], [0.0, 0.0, 1.0]], np.float32)
+K_HI = np.array([[840.0, 0.0, 320.0], [0.0, 840.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
+DIST = np.array([0.05, -0.02, 0.001, -0.0015, 0.01], np.float32)
+OBJ = inner_corner_object_points(5, 5, 0.01)
+POSE_KEYS = ("keypoints", "valid", "refined", "ok", "rvec", "tvec", "rms")
+OFFSET_LAYERS = ("convOa", "denseOa", "denseOb")
 
 
-def frames(n: int = 8) -> np.ndarray:
-    imgs, _, _ = DeviceSynthesizer(default_config()).batch(jax.random.PRNGKey(2024), n)
+def _to_uint8(imgs) -> np.ndarray:
     g = np.asarray(imgs)[..., 0]
     return np.clip(np.rint(g * 255.0 + 128.0), 0, 255).astype(np.uint8)
 
 
+def frames(n: int = 8) -> np.ndarray:
+    imgs, _, _ = DeviceSynthesizer(default_config()).batch(jax.random.PRNGKey(2024), n)
+    return _to_uint8(imgs)
+
+
+def frames_hi(n: int = 4) -> np.ndarray:
+    cfg = scaled_config(default_config(), 2)
+    imgs, _, _ = DeviceSynthesizer(cfg).batch(jax.random.PRNGKey(2025), n)
+    return _to_uint8(imgs)
+
+
 def jax_outputs(x: np.ndarray, dtype) -> dict:
+    """``full_forward`` (24-px hard decode) under the fixed camera."""
     det, rn = Detector(n_ids=16, dtype=dtype), RefineNet(dtype=dtype)
     dv, rv = variables_from_npz(DET), variables_from_npz(RN)
-    kp, valid, refined = jax.jit(
-        lambda dv, rv, x: two_stage_forward(det, rn, dv, rv, x, 16))(dv, rv, x)
-    return {"keypoints": np.asarray(kp), "valid": np.asarray(valid),
-            "refined": np.asarray(refined)}
+    out = jax.jit(lambda dv, rv, x: full_forward(
+        det, rn, dv, rv, x, 16, jnp.asarray(OBJ), jnp.asarray(K), jnp.asarray(DIST)))(
+        dv, rv, x)
+    return dict(zip(POSE_KEYS, (np.asarray(o) for o in out)))
+
+
+def jax_hires(x_hi: np.ndarray, dtype) -> dict:
+    det, rn = Detector(n_ids=16, dtype=dtype), RefineNet(dtype=dtype, patch_size=32)
+    dv, rv = variables_from_npz(DET), variables_from_npz(RN32)
+    cam = Camera(K=K_HI, dist=DIST).scaled(0.5)
+    out = jax.jit(lambda dv, rv, x: full_forward_hires(
+        det, rn, dv, rv, x, 16, jnp.asarray(OBJ), jnp.asarray(cam.K),
+        jnp.asarray(cam.dist), rn_decode="soft", scale=2))(dv, rv, x_hi)
+    return dict(zip(POSE_KEYS, (np.asarray(o) for o in out)))
+
+
+def jax_top4(x: np.ndarray) -> dict:
+    det, rn = Detector(n_ids=16), RefineNet()
+    dv, rv = variables_from_npz(DET), variables_from_npz(RN)
+    out = jax.jit(lambda dv, rv, x: two_stage_forward(
+        det, rn, dv, rv, x, 16, decode_capacity=4))(dv, rv, x)
+    return dict(zip(POSE_KEYS, (np.asarray(o) for o in out)))
+
+
+def offset_branch() -> dict:
+    """A seeded offset branch as flat float16 arrays (half the bytes; the
+    float16 values are the weights)."""
+    v = RefineNet(dtype=jnp.float32, offset_head=True).init(
+        jax.random.PRNGKey(7), jnp.zeros((1, 24, 24, 1), jnp.float32))
+    flat = {}
+    for coll in ("params", "batch_stats"):
+        for layer in OFFSET_LAYERS:
+            if layer in v[coll]:
+                for kp, leaf in jax.tree_util.tree_flatten_with_path(v[coll][layer])[0]:
+                    key = "/".join([coll, layer] + [k.key for k in kp])
+                    flat[key] = np.asarray(leaf).astype(np.float16)
+    return flat
+
+
+def with_offset_branch(rv: dict, flat: dict) -> dict:
+    """The shipped 24-px variables plus the stored branch, as float32."""
+    out = {coll: dict(rv[coll]) for coll in rv}
+    for key, value in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value.astype(np.float32)
+    return out
+
+
+def jax_offset(x: np.ndarray, flat: dict, dtype) -> dict:
+    det, rn = Detector(n_ids=16, dtype=dtype), RefineNet(dtype=dtype, offset_head=True)
+    dv = variables_from_npz(DET)
+    rv = with_offset_branch(variables_from_npz(RN), flat)
+    out = {}
+    for mode in ("offset", "avg"):
+        _, _, refined = jax.jit(lambda dv, rv, x: two_stage_forward(
+            det, rn, dv, rv, x, 16, rn_decode=mode))(dv, rv, x)
+        out[mode] = np.asarray(refined)
+    return out
 
 
 def jax_fused(x: np.ndarray) -> dict:
@@ -70,18 +164,29 @@ def jax_fused(x: np.ndarray) -> dict:
 
 
 def main():
-    x = frames()
-    out = {"frames": x}
+    x, x_hi = frames(), frames_hi()
+    out = {"frames": x, "frames_hi": x_hi, "K": K, "K_hi": K_HI, "dist": DIST}
     for tag, res in (("bf16", jax_outputs(x, jnp.bfloat16)),
                      ("f32", jax_outputs(x, jnp.float32)),
-                     ("fused", jax_fused(x))):
+                     ("fused", jax_fused(x)),
+                     ("top4", jax_top4(x)),
+                     ("hires_bf16", jax_hires(x_hi, jnp.bfloat16)),
+                     ("hires_f32", jax_hires(x_hi, jnp.float32))):
         for k, v in res.items():
             out[f"{k}_{tag}"] = v
+    branch = offset_branch()
+    out.update({f"rn_offset/{k}": v for k, v in branch.items()})
+    for tag, dtype in (("bf16", jnp.bfloat16), ("f32", jnp.float32)):
+        for mode, refined in jax_offset(x, branch, dtype).items():
+            out[f"refined_{mode}_{tag}"] = refined
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **out)
     print(OUT, os.path.getsize(OUT), "bytes;",
-          {k: int(out[f"valid_{k}"].sum()) for k in ("bf16", "f32", "fused")},
-          "valid slots of", out["valid_f32"].size)
+          {k: int(out[f"valid_{k}"].sum())
+           for k in ("bf16", "f32", "fused", "top4", "hires_bf16", "hires_f32")},
+          "valid slots;",
+          {k: (int(out[f"ok_{k}"].sum()), np.round(out[f"rms_{k}"], 2).tolist())
+           for k in ("bf16", "f32", "hires_bf16", "hires_f32")}, "ok frames, rms")
 
 
 if __name__ == "__main__":

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on the card.
 
-Runs ``InferencePipeline.detect`` (frames → corners → sub-pixel corners,
-shipped weights, bf16) on batches of 256 unique 240×320 uint8 frames built
-from the fixture frames, and prints:
+Runs the pose path (frames → corners → sub-pixel corners → pose, shipped
+weights, bf16, the fixture's camera) on batches of 256 unique 240×320 uint8
+frames built from the fixture frames, and prints:
 
 - per-stage device times with CUDA events (upload, gray, detector, decode,
-  patch gather, RefineNet, sub-pixel decode, download) for the heads+decode
-  path and the fused-head path;
-- the wall time of ``detect`` per batch, and from a ``torch.profiler``
-  window over the same calls the device time per batch, their ratio (the
-  device's busy share) and the kernels by total device time;
+  patch gather, RefineNet, sub-pixel decode, pose tail, download) for the
+  heads+decode path and the fused-head path;
+- the wall time of ``detect`` and of ``detect_with_pose`` per batch, and
+  from a ``torch.profiler`` window over the same calls the device time per
+  batch, their ratio (the device's busy share) and, for ``detect``, the
+  kernels by total device time;
 - the card's name and power limit from ``nvidia-smi``.
 
 Needs a CUDA device: ``python3 scripts/profile_torch_port.py``.
@@ -33,14 +34,16 @@ from deepcharuco_tpu_torch.configs import default_config  # noqa: E402
 from deepcharuco_tpu_torch.ops import (extract_patches, pred_to_keypoints,  # noqa: E402
                                        refine_keypoints)
 from deepcharuco_tpu_torch.ops.cuda_fused import fused_head_decode  # noqa: E402
-from deepcharuco_tpu_torch.pipeline import InferencePipeline, _to_gray_input  # noqa: E402
+from deepcharuco_tpu_torch.pipeline import (Camera, InferencePipeline,  # noqa: E402
+                                            _to_gray_input)
 from deepcharuco_tpu_torch.weights import variables_from_npz  # noqa: E402
 
 N = 256
+FIXTURE = os.path.join(ROOT, "tests/data/torch_port_frames.npz")
 
 
 def batches(count: int) -> list:
-    frames = np.load(os.path.join(ROOT, "tests/data/torch_port_frames.npz"))["frames"]
+    frames = np.load(FIXTURE)["frames"]
     rng = np.random.default_rng(1)
     out = []
     for tag in range(count):
@@ -55,7 +58,7 @@ def batches(count: int) -> list:
 def stage_times(pipe, host_batches, fused: bool) -> dict:
     """Mean device ms per stage over the batches (after one warm-up)."""
     names = ["upload", "gray", "detector", "decode", "patches", "refinenet",
-             "subpixel", "download"]
+             "subpixel", "pose", "download"]
     sums = dict.fromkeys(names, 0.0)
     for i, hb in enumerate(host_batches):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
@@ -81,8 +84,10 @@ def stage_times(pipe, host_batches, fused: bool) -> dict:
             ev[6].record()
             refined = refine_keypoints(heat, kp)
             ev[7].record()
-            _ = (kp.cpu(), valid.cpu(), refined.cpu())
+            pose = pipe.solve_pose(refined, valid)
             ev[8].record()
+            _ = [t.cpu() for t in (kp, valid, refined, *pose)]
+            ev[9].record()
         torch.cuda.synchronize()
         if i == 0:
             continue
@@ -103,37 +108,40 @@ def main() -> int:
     cfg = default_config()
     dv = variables_from_npz(os.path.join(ROOT, "artifacts/detector_devsynth.npz"))
     rv = variables_from_npz(os.path.join(ROOT, "artifacts/refinenet_devsynth.npz"))
+    with np.load(FIXTURE) as fix:
+        cam = Camera(K=fix["K"], dist=fix["dist"])
     hb = batches(9)
     for fused in (False, True):
-        pipe = InferencePipeline(cfg, dv, rv, fused_head=fused)
+        pipe = InferencePipeline(cfg, dv, rv, camera=cam, fused_head=fused)
         st = stage_times(pipe, hb, fused)
         total = sum(st.values())
         line = ", ".join(f"{k} {v:.3f}" for k, v in st.items())
         print(f"stages [{'fused' if fused else 'heads+decode'}] ms per batch of {N}: "
               f"{line}; sum {total:.3f}")
 
-    pipe = InferencePipeline(cfg, dv, rv)
-    pipe.detect(hb[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for b in hb[1:5]:
-        pipe.detect(b)
-    wall_ms = 1e3 * (time.perf_counter() - t0) / 4
+    pipe = InferencePipeline(cfg, dv, rv, camera=cam)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):   # the tracer's one-time start-up cost
         pipe.detect(hb[0])
-    with profile(activities=acts) as prof:
-        for b in hb[1:5]:
-            pipe.detect(b)
+    for name, fn in (("detect_with_pose", pipe.detect_with_pose), ("detect", pipe.detect)):
+        fn(hb[0])
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 4
-    print(f"detect: {wall_ms:.3f} ms per batch of {N} on the host clock (no profiler); "
-          f"device kernels and copies {dev_ms:.3f} ms per batch under the profiler; "
-          f"busy share {100 * dev_ms / wall_ms:.1f}%")
+        t0 = time.perf_counter()
+        for b in hb[1:5]:
+            fn(b)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 4
+        with profile(activities=acts) as prof:
+            for b in hb[1:5]:
+                fn(b)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 4
+        print(f"{name}: {wall_ms:.3f} ms per batch of {N} on the host clock (no profiler); "
+              f"device kernels and copies {dev_ms:.3f} ms per batch under the profiler; "
+              f"busy share {100 * dev_ms / wall_ms:.1f}%")
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
     print(table)
     return 0

@@ -133,3 +133,32 @@ def test_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError, match="aligned"):        # 4 bytes off 16
         cuda_decode.decode(buf[1:].view(1, 30, 40, 65),
                            torch.zeros(1, 30, 40, 17, device=card), N_IDS)
+
+
+def test_pose_tail_graph_matches_eager(card, rng):
+    """``InferencePipeline.solve_pose`` replays the solver from a CUDA graph:
+    the same poses as the eager ``solve_pnp_batch``, also for a second batch
+    through the same graph and for another batch size."""
+    from deepcharuco_tpu_torch.configs import default_config
+    from deepcharuco_tpu_torch.pipeline import Camera, InferencePipeline
+    from deepcharuco_tpu_torch.pnp import project_points, solve_pnp_batch
+
+    fix = np.load(FRAMES)
+    pipe = InferencePipeline(default_config(), variables_from_npz(DET),
+                             camera=Camera(K=fix["K"], dist=fix["dist"]), device=card)
+    K, dist = (torch.from_numpy(fix[k]).to(card) for k in ("K", "dist"))
+    for n in (32, 32, 5):
+        rvec = torch.from_numpy(rng.normal(scale=0.4, size=(n, 3)).astype(np.float32)).to(card)
+        tvec = torch.from_numpy(rng.normal(scale=0.02, size=(n, 3)).astype(np.float32)).to(card)
+        tvec[:, 2] += 0.3
+        img = project_points(pipe.object_points, rvec, tvec, K, dist)
+        valid = torch.from_numpy(rng.random((n, N_IDS)) > 0.2).to(card)
+        valid[0] = False                                  # a frame with no corners
+        want = solve_pnp_batch(pipe.object_points, img, valid, K, dist)
+        got = pipe.solve_pose(img, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and not bool(got[0][0])
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.allclose(a, b, atol=1e-6)
+        assert torch.allclose(got[1][want[0]], rvec[want[0]], atol=5e-3)
+    assert sorted(pipe._pose_graphs) == [5, 32]
