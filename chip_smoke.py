@@ -56,7 +56,33 @@ stopping at the first failure with a non-zero exit:
    operations and their summed device time from ``torch.profiler``); one
    profiled request for the card's busy share; hi-res requests (scale 2, 64
    frames of 480×640); and the patch gather's time and peak memory at the
-   tap's sizes.
+   tap's sizes;
+10. the geometry decode: ``detect_with_pose`` with ``geom_decode=True`` and
+    with ``geom_fill=True``, at the base resolution and with ``hires=2``,
+    against the JAX package's stored bf16 outputs, the stored Gumbel tables
+    passed in: slots that neither side filled within phase 4's limits (phase
+    8's under the tap), ``filled`` equal on ≥ 98% of the slots, pose as in
+    phase 7; and its ms per batch of 256 beside the parity decode's;
+11. the int8 detector: the shipped artifact through ``load_pipeline``; every
+    layer's int32 accumulators on the card (im2col + ``torch._int_mm``)
+    equal, bit for bit, to the CPU route's (int32 ``F.conv2d``) on the
+    fixture frames, and the share of int8 activations that differ;
+    ``detect`` against the JAX int8 pipeline's stored outputs (phase 4's
+    limits); ms per batch of 256 for the int8 detector beside the bf16
+    one's;
+12. multi-stream serving: 256 streams × 8 steps of unique 240×320 frames
+    through ``StreamServer``, the same frames as 32 streams × 64 steps
+    through ``DeviceQueueServer(chunk=8)`` (the same 256-frame blocks), and
+    the same batches through ``pipelined_map``, with and without pose: every
+    result equal, bit for bit, to the synchronous call on the same batch
+    (two batches are in flight, so the pose graph's shared output buffers
+    would show here if they were read late); fps beside the synchronous
+    loop's, and the card's idle share under both from ``torch.profiler``
+    (the union of the device operations' intervals over their span); the
+    kernels' launch counts on the served paths; the geometry decode served
+    against synchronous; and the peak bytes of device memory per input pixel
+    of served batches (both paths, with and without pose, at 240×320, and
+    480×640), which ``serving.TWO_STAGE_BYTES_PER_PIXEL`` must cover.
 
 Its last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with the kernels' numbers, and ``{"ok": true, "device": {...}}``. Imports
@@ -78,6 +104,7 @@ FIXTURE = os.path.join(ROOT, "tests", "data", "torch_port_frames.npz")
 DET = os.path.join(ROOT, "artifacts", "detector_devsynth.npz")
 RN = os.path.join(ROOT, "artifacts", "refinenet_devsynth.npz")
 RN32 = os.path.join(ROOT, "artifacts", "refinenet32_devsynth.npz")
+INT8 = os.path.join(ROOT, "artifacts", "detector_devsynth_int8.npz")
 POSE_KEYS = ("keypoints", "valid", "refined", "ok", "rvec", "tvec", "rms")
 N, HC, WC, N_IDS = 256, 30, 40, 16
 GRIDS = [(n, hc, wc) for hc, wc in ((31, 37), (29, 41)) for n in (1, 3, 256)]
@@ -736,6 +763,363 @@ def phase_pose_serve(pipes, hi_pipe, fix, rng, dev, detect_serve):
     return {"serve": pose, "tail": tail, "hires": hi, "gather": gather}, launches
 
 
+def drop_slots(arrays, drop):
+    """(keypoints, valid, refined, ...) with the slots of ``drop`` made
+    invalid on a copy of ``valid``."""
+    arrays = [np.asarray(a) for a in arrays]
+    arrays[1] = arrays[1] & ~drop
+    return tuple(arrays)
+
+
+def ms_per_batch(fn, batches):
+    """Host-clock ms per call of ``fn`` over ``batches``, every result on the
+    host; the card idle at the start."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        fn(b)
+    return 1e3 * (time.perf_counter() - t0) / len(batches)
+
+
+def phase_geom(cfg, pipes, fix, rng, dev):
+    import torch
+
+    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
+    from deepcharuco_tpu_torch.pipeline import (Camera, load_pipeline, two_stage_forward,
+                                                two_stage_forward_hires)
+
+    noise = (fix["geom_noise_g"], fix["geom_noise_gs"])
+    cam = Camera(K=fix["K"], dist=fix["dist"])
+    cam_hi = Camera(K=fix["K_hi"], dist=fix["dist"])
+    served = {}
+    for hires in (False, True):
+        for fill in (False, True):
+            tag = ("hires_" if hires else "") + ("geomfill" if fill else "geom") + "_bf16"
+            name = f"phase 10 geometry decode [{tag}] vs JAX bf16"
+            kw = dict(geom_decode=True, geom_fill=fill, geom_noise=noise, device=dev)
+            if hires:
+                pipe = load_pipeline(cfg, DET, RN32, camera=cam_hi, rn_patch_size=32, hires=2,
+                                     **kw)
+                frames = fix["frames_hi"]
+                filled = two_stage_forward_hires(
+                    pipe.detector, pipe.refinenet, frames, N_IDS, rn_decode=pipe.rn_decode,
+                    scale=2, return_filled=True, device=dev, **pipe._geom)[3]
+            else:
+                pipe = load_pipeline(cfg, DET, RN, camera=cam, **kw)
+                frames = fix["frames"]
+                filled = two_stage_forward(
+                    pipe.detector, pipe.refinenet, frames, N_IDS, rn_decode=pipe.rn_decode,
+                    return_filled=True, device=dev, **pipe._geom)[3]
+            filled = filled.cpu().numpy()
+            ref = stored(fix, tag, POSE_KEYS + ("filled",))
+            cuda_decode.launches = cuda_fused.launches = 0
+            out = pipe.detect_with_pose(frames)
+            require((cuda_decode.launches, cuda_fused.launches) == (0, 0),
+                    f"{name}: the geometry decode launched a one-slot decode kernel")
+            same_fill = float((filled == ref[7]).mean())
+            log(f"{name}: filled equal on {same_fill:.4f} of the slots "
+                f"({int(filled.sum())} filled here, {int(ref[7].sum())} in JAX; "
+                f"{int(np.asarray(out[1]).sum())} valid)")
+            require(same_fill >= 0.98, f"{name}: filled masks disagree")
+            require(fill or not filled.any(), f"{name}: filled without geom_fill")
+            require(not (filled & ~np.asarray(out[1])).any(), f"{name}: a filled slot is invalid")
+            either = filled | ref[7]
+            limits = dict(slots=2 / 64, near_share=0.95) if hires else {}
+            good = corners_agree(name, drop_slots(out, either), drop_slots(ref, either),
+                                 **limits)
+            pose_agrees(name, out, ref, good | either)
+            if not hires:
+                served["geom+fill" if fill else "geom"] = pipe
+    # ms per batch of 256 beside the parity decode's, the same batches in turns
+    batches = make_batches(fix["frames"], 5, rng)
+    served = {"parity": pipes["heads+decode"], **served}
+    for pipe in served.values():
+        pipe.detect_with_pose(batches[0])
+    ms = {name: [] for name in served}
+    for _ in range(2):
+        for name, pipe in served.items():
+            ms[name].append(ms_per_batch(pipe.detect_with_pose, batches[1:]))
+    ops = {name: device_ops(lambda: pipe.detect_with_pose(batches[1]))
+           for name, pipe in served.items()}
+    # the host's time to enqueue one batch (frames already on the card)
+    # beside the time until the card has finished it
+    on_card = torch.from_numpy(batches[1]).to(dev)
+    host = {name: host_and_wall_ms(lambda: pipe.forward_device(on_card, True))
+            for name, pipe in served.items()}
+    for name in served:
+        log(f"phase 10 detect_with_pose [{name}], batch {N}: "
+            f"{' / '.join(f'{x:.3f}' for x in ms[name])} ms per batch (4 requests, two "
+            f"rounds in turns); {ops[name][0]} device operations, {ops[name][1]:.3f} ms "
+            f"summed device time; forward_device: {host[name][0]:.3f} ms on the host to "
+            f"enqueue, {host[name][1]:.3f} ms to finish")
+    stats = {name: {"ms_per_batch": ms[name], "device_ops": ops[name][0],
+                    "device_busy_ms": ops[name][1], "host_enqueue_ms": host[name][0],
+                    "finish_ms": host[name][1]} for name in served}
+    del served["parity"]
+    return stats, served
+
+
+def phase_int8(cfg, pipes, fix, rng, dev):
+    import torch
+
+    from deepcharuco_tpu_torch.models.quant import QuantDetector, qvars_from_npz
+    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
+    from deepcharuco_tpu_torch.ops.image import normalize_gray
+    from deepcharuco_tpu_torch.pipeline import load_pipeline
+
+    pipe = load_pipeline(cfg, INT8, RN, device=dev)
+    require(isinstance(pipe.detector, QuantDetector), "the int8 artifact was not recognised")
+    g = normalize_gray(torch.from_numpy(fix["frames"]).to(dev))
+    cpu_det = QuantDetector(qvars_from_npz(INT8), N_IDS).eval()
+    acc_card, acc_cpu = [], []
+    with torch.inference_mode():
+        heads = pipe.detector(g, accumulators=acc_card)
+        heads_cpu = cpu_det(g.cpu(), accumulators=acc_cpu)
+    torch.cuda.synchronize()
+    require(len(acc_card) == len(acc_cpu) == 12, "expected 12 accumulators")
+    differ = [int((a.cpu() != b).sum()) for a, b in zip(acc_card, acc_cpu)]
+    sizes = [a.numel() for a in acc_cpu]
+    peak = max(int(a.abs().max()) for a in acc_cpu)
+    d_logit = max(float((heads[k].cpu() - heads_cpu[k]).abs().max()) for k in heads)
+    log(f"phase 11 int8 accumulators, card (im2col + torch._int_mm) against the CPU's int32 "
+        f"conv2d on the {len(fix['frames'])} fixture frames: {sum(differ)} of {sum(sizes)} "
+        f"differ over 12 layers ({differ}); largest |accumulator| {peak} (2^24 = 16777216); "
+        f"max |Δlogit| {d_logit:.3e}")
+    require(all(a.dtype == torch.int32 for a in acc_card), "accumulators are not int32")
+    require(sum(differ) == 0, "int32 accumulators on the card differ from the CPU route's")
+    # layer k's accumulators are equal and layer k+1's too, so the int8
+    # activations between them are: no epilogue value flipped
+    log("phase 11 int8 epilogue: 0 activations flipped between the card and the CPU "
+        "(every next layer's accumulators are equal)")
+    cuda_decode.launches = cuda_fused.launches = 0
+    out = pipe.detect(fix["frames"])
+    require((cuda_decode.launches, cuda_fused.launches) == (1, 0),
+            "the int8 path did not decode through the decode kernel")
+    corners_agree("phase 11 int8 detect vs the JAX int8 pipeline (bf16 RefineNet)", out,
+                  stored(fix, "int8", POSE_KEYS[:3]))
+    try:
+        load_pipeline(cfg, INT8, RN, fused_head=True, device=dev)
+    except ValueError as e:
+        log(f"phase 11 int8 with fused_head=True raises ValueError: {str(e)[:60]}...")
+    else:
+        require(False, "int8 with fused_head=True did not raise")
+
+    batches = make_batches(fix["frames"], 4, rng)
+    bf16 = pipes["heads+decode"]
+    for p in (pipe, bf16):
+        p.detect(batches[0])
+    launches = 0
+    ms = {"int8": [], "bf16": []}
+    det_ms = {"int8": [], "bf16": []}
+    gb = normalize_gray(torch.from_numpy(batches[1]).to(dev))
+    peak_gib = {}
+    for _ in range(2):
+        for name, p in (("bf16", bf16), ("int8", pipe)):
+            cuda_decode.launches = 0
+            ms[name].append(ms_per_batch(p.detect, batches[1:]))
+            launches += cuda_decode.launches if name == "int8" else 0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.inference_mode():
+                det_ms[name].append(cuda_ms(lambda: p.detector(gb), iters=3, warmup=1))
+            peak_gib[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pipe.detector(gb)
+        torch.cuda.synchronize()
+    by_op = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    total_us = sum(e.device_time_total for e in by_op)
+    log(f"phase 11 [int8] one detector call by device operation ({total_us / 1e3:.3f} ms): "
+        + "; ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.2f} ms ×{e.count}"
+                    for e in by_op[:8]))
+    for name in ms:
+        log(f"phase 11 [{name}] batch {N}: detector alone "
+            f"{' / '.join(f'{x:.3f}' for x in det_ms[name])} ms (peak {peak_gib[name]:.2f} GiB "
+            f"above the frames), detect {' / '.join(f'{x:.3f}' for x in ms[name])} ms per "
+            f"batch (3 requests, two rounds in turns)")
+    log(f"phase 11 launches of the decode kernel in the int8 pipeline's 6 requests: {launches}")
+    require(launches == 6, f"the decode kernel ran {launches} times in 6 int8 requests")
+    return {"detector_ms": det_ms, "detect_ms_per_batch": ms, "detector_peak_gib": peak_gib,
+            "accumulators_differ": sum(differ), "max_abs_accumulator": peak}, launches
+
+
+def busy_share(fn):
+    """Profile ``fn`` and return (ms the card was busy: the union of its
+    operations' intervals, ms from its first operation's start to its last
+    one's end, number of operations)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    require(bool(spans), "torch.profiler saw no device operation")
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return busy / 1e3, (max(b for _, b in spans) - spans[0][0]) / 1e3, len(spans)
+
+
+def equal_results(got, want) -> bool:
+    """Bit for bit, NaN equal to NaN; the first array that differs is logged."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(a, b, equal_nan=True):
+            a, b = np.asarray(a), np.asarray(b)
+            where = np.argwhere(a != b)[:3].tolist() if a.shape == b.shape else "shapes"
+            log(f"  array {i} differs: {a.shape} {a.dtype} against {b.shape} {b.dtype} at {where}")
+            return False
+    return True
+
+
+def stream_server_equal(tag, got, want, keys):
+    """Every step of a ``StreamServer`` run over N streams holds all streams
+    and equals the synchronous call on that step's batch."""
+    require(len(got) == len(want), f"[{tag}] StreamServer gave {len(got)} steps")
+    for s, res in enumerate(got):
+        require(sorted(res) == list(range(N)), f"[{tag}] StreamServer step {s}: streams")
+        rows = tuple(np.stack([res[i][k] for i in range(N)]) for k in keys)
+        require(equal_results(rows, want[s]),
+                f"[{tag}] StreamServer step {s} differs from the synchronous call")
+
+
+def phase_streams(pipes, geom_pipes, fix, rng, dev):
+    import torch
+
+    from deepcharuco_tpu_torch import serving
+    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
+    from deepcharuco_tpu_torch.serving import (RESULT_KEYS, DeviceQueueServer, StreamServer,
+                                               VideoStream, pipelined_map)
+
+    steps, chunk = 8, 8
+    few = N // chunk
+    batches = make_batches(fix["frames"], steps, rng)
+    # 256 streams, one frame of each per step: step s is batches[s]
+    wide = lambda: [VideoStream(iter([b[i] for b in batches])) for i in range(N)]
+    # 32 streams × 64 steps: chunk k of 8 steps is batches[k], row = step·32 + stream
+    narrow = lambda: [VideoStream(iter([b[s * few + j] for b in batches for s in range(chunk)]))
+                      for j in range(few)]
+    out = {}
+    launches = {}
+    for name, pipe in pipes.items():
+        for with_pose in (True, False):
+            tag = f"{name}, {'with' if with_pose else 'no'} pose"
+            keys = RESULT_KEYS if with_pose else RESULT_KEYS[:3]
+            call = pipe.detect_with_pose if with_pose else pipe.detect
+            want = [call(b) for b in batches]
+            runs = {
+                "StreamServer": lambda: list(StreamServer(pipe, wide(), with_pose).run()),
+                "DeviceQueueServer": lambda: list(DeviceQueueServer(
+                    pipe, narrow(), chunk=chunk, with_pose=with_pose).run()),
+                "pipelined_map": lambda: list(pipelined_map(
+                    lambda x: pipe.forward_device(x, with_pose), batches, device=dev)),
+            }
+            cuda_decode.launches = cuda_fused.launches = 0
+            got = {k: run() for k, run in runs.items()}     # also the warm-up
+            launches[tag] = (cuda_decode.launches, cuda_fused.launches)
+            require(len(got["StreamServer"]) == steps
+                    and len(got["DeviceQueueServer"]) == steps * chunk
+                    and len(got["pipelined_map"]) == steps, f"[{tag}] wrong number of steps")
+            stream_server_equal(tag, got["StreamServer"], want, keys)
+            for t, res in enumerate(got["DeviceQueueServer"]):
+                k, s = divmod(t, chunk)
+                require(sorted(res) == list(range(few)), f"[{tag}] DeviceQueueServer step {t}")
+                rows = tuple(np.stack([res[j][key] for j in range(few)]) for key in keys)
+                require(equal_results(rows, tuple(w[s * few:(s + 1) * few] for w in want[k])),
+                        f"[{tag}] DeviceQueueServer step {t} differs from the synchronous call")
+            for s, res in enumerate(got["pipelined_map"]):
+                require(equal_results(res, want[s]),
+                        f"[{tag}] pipelined_map batch {s} differs from the synchronous call")
+            log(f"phase 12 [{tag}]: StreamServer ({N} streams × {steps} steps), "
+                f"DeviceQueueServer ({few} streams × {steps * chunk} steps, chunk {chunk}) and "
+                f"pipelined_map equal the synchronous calls bit for bit on {steps} batches; "
+                f"launches decode/fused {launches[tag]}")
+            want_l = (3 * steps, 0) if name == "heads+decode" else (0, 3 * steps)
+            require(launches[tag] == want_l, f"[{tag}] kernel launches {launches[tag]}")
+            runs = {"synchronous": lambda: [call(b) for b in batches], **runs}
+            fps = {k: [] for k in runs}
+            for _ in range(2):
+                for k, run in runs.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    fps[k].append(N * steps / (time.perf_counter() - t0))
+            idle = {}
+            for k in ("synchronous", "StreamServer"):
+                busy, span, n_ops = busy_share(runs[k])
+                idle[k] = {"busy_ms": busy, "span_ms": span, "device_ops": n_ops,
+                           "idle_share": 1 - busy / span}
+            out[tag] = {"fps": fps, "idle": idle}
+            log(f"phase 12 [{tag}] fps over {steps} batches of {N}, two rounds in turns: "
+                + "; ".join(f"{k} {' / '.join(f'{x:.1f}' for x in v)}" for k, v in fps.items()))
+            log(f"phase 12 [{tag}] the card under torch.profiler: "
+                + "; ".join(f"{k}: busy {v['busy_ms']:.3f} of {v['span_ms']:.3f} ms, idle share "
+                            f"{v['idle_share']:.4f}" for k, v in idle.items()))
+
+    # the geometry decode, whose enqueue holds the host longer than the
+    # detector holds the card: served against synchronous, with pose
+    for name, pipe in geom_pipes.items():
+        tag = f"{name}, with pose"
+        want = [pipe.detect_with_pose(b) for b in batches]
+        runs = {"synchronous": lambda: [pipe.detect_with_pose(b) for b in batches],
+                "StreamServer": lambda: list(StreamServer(pipe, wide(), True).run())}
+        stream_server_equal(tag, runs["StreamServer"](), want, RESULT_KEYS)
+        fps = {k: [] for k in runs}
+        for _ in range(2):
+            for k, run in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                fps[k].append(N * steps / (time.perf_counter() - t0))
+        out[tag] = {"fps": fps}
+        log(f"phase 12 [{tag}] StreamServer equals the synchronous calls bit for bit; fps over "
+            f"{steps} batches of {N}, two rounds in turns: "
+            + "; ".join(f"{k} {' / '.join(f'{x:.1f}' for x in v)}" for k, v in fps.items()))
+
+    # peak device memory per input pixel of served batches, bf16
+    bpp = {}
+    cases = [(f"240x320, {name}, {'with' if pose else 'no'} pose", p, pose, fix["frames"], N)
+             for name, p in pipes.items() for pose in (False, True)]
+    cases.append(("480x640, heads+decode, no pose", pipes["heads+decode"], False,
+                  fix["frames_hi"], 64))
+    for tag, p, pose, frames, n in cases:
+        block = make_batches(frames, 3, rng, n=n)
+        h, w = block[0].shape[1:3]
+        streams = lambda: [VideoStream(iter([b[i] for b in block])) for i in range(n)]
+        list(StreamServer(p, streams(), pose).run())
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        list(StreamServer(p, streams(), pose).run())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        bpp[tag] = peak / (n * h * w)
+        log(f"phase 12 peak device memory of served batches, {n} frames of {tag}, bf16: "
+            f"{peak / 2 ** 20:.1f} MiB above the pipeline at rest = {bpp[tag]:.1f} bytes per "
+            f"input pixel (serving.TWO_STAGE_BYTES_PER_PIXEL = "
+            f"{serving.TWO_STAGE_BYTES_PER_PIXEL})")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log(f"phase 12 budget: {total} bytes of device memory → ceiling "
+        f"{serving.two_stage_batch_ceiling(480, 640, device=dev)} frames of 480×640, "
+        f"{serving.two_stage_batch_ceiling(240, 320, device=dev)} of 240×320")
+    require(max(bpp.values()) <= serving.TWO_STAGE_BYTES_PER_PIXEL,
+            f"serving.TWO_STAGE_BYTES_PER_PIXEL = {serving.TWO_STAGE_BYTES_PER_PIXEL} does not "
+            f"cover the measured {bpp}")
+    out["bytes_per_pixel"] = bpp
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -781,10 +1165,16 @@ def main() -> int:
     phase_pose_fixture(pipes, fix, dev)
     hi_pipe = phase_variants(cfg, dv, rv, fix, dev)
     pose, pose_launches = phase_pose_serve(pipes, hi_pipe, fix, rng, dev, serve)
-    for row in rows:
+    geom, geom_pipes = phase_geom(cfg, pipes, fix, rng, dev)
+    int8, int8_launches = phase_int8(cfg, pipes, fix, rng, dev)
+    streams, stream_launches = phase_streams(pipes, geom_pipes, fix, rng, dev)
+    for i, row in enumerate(rows):
         row["launches_pose_path"] = pose_launches[row["name"]]
+        row["launches_int8_path"] = int8_launches if row["name"] == "decode" else 0
+        row["launches_served_paths"] = sum(v[i] for v in stream_launches.values())
     log(json.dumps({"serve": serve, "fused_mismatch": fused_rates, "yardsticks": yard,
-                    "build_s": build_s, "pose": pose}))
+                    "build_s": build_s, "pose": pose, "geom": geom, "int8": int8,
+                    "streams": streams}))
     log(smi())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,11 @@ from deepcharuco_tpu_torch.ops.decode import (
     refine_keypoints_soft,
     refine_keypoints_offset,
 )
+from deepcharuco_tpu_torch.ops.geom import (
+    fill_from_homography,
+    pred_to_keypoints_geom,
+    reselect_by_homography,
+)
 from deepcharuco_tpu_torch.ops.patches import extract_patches
 
 __all__ = [
@@ -29,5 +34,8 @@ __all__ = [
     "soft_argmax_2d",
     "refine_keypoints_soft",
     "refine_keypoints_offset",
+    "fill_from_homography",
+    "pred_to_keypoints_geom",
+    "reselect_by_homography",
     "extract_patches",
 ]

@@ -18,19 +18,25 @@ detector at its trunk and runs heads + decode in one kernel
 - :class:`Camera` — intrinsics in cv2 conventions
 - :class:`InferencePipeline` — holds the models, numpy in and out
 - :func:`load_pipeline` — builds one from ``.npz`` weight files
+- :func:`load_detector_any`, :func:`is_quantized_npz` — the float detector
+  or the int8 one (``models/quant.py``), by the file's layout
 
 Every entry point takes ``device``: None means the card. Without a card it
 raises unless the caller passes ``device="cpu"``, which runs the kernels'
 plain versions.
 
-Not ported yet (``NotImplementedError``, see ROADMAP.md "Open items"): the
-geometry decode (``geom_*``) and the int8 detector.
+The geometry decode (``geom_*``, ``ops/geom.py``) and the int8 detector
+read the detector's logits, so both decode through the decode kernel and
+refuse ``fused_head=True``. Not ported yet (``NotImplementedError``, see
+ROADMAP.md "Open items"): loading Lightning ``.ckpt`` files and orbax
+checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import zipfile
 from typing import Dict, Optional
 
 import numpy as np
@@ -40,8 +46,10 @@ from deepcharuco_tpu_torch._device import resolve_device
 from deepcharuco_tpu_torch.board import inner_corner_object_points
 from deepcharuco_tpu_torch.configs import Config
 from deepcharuco_tpu_torch.models import Detector, RefineNet
+from deepcharuco_tpu_torch.models.quant import QuantDetector, qvars_from_npz
 from deepcharuco_tpu_torch.ops import (downsample2x, extract_patches,
-                                       normalize_gray, pred_to_keypoints,
+                                       fill_from_homography, normalize_gray,
+                                       pred_to_keypoints, pred_to_keypoints_geom,
                                        pred_to_keypoints_topk, preprocess_bgr,
                                        refine_keypoints, refine_keypoints_soft)
 from deepcharuco_tpu_torch.ops.cuda_fused import fused_head_decode, head_params
@@ -99,15 +107,37 @@ class Camera:
 _MAX_POSE_GRAPHS = 8
 
 
+# How far a RefineNet correction may move a homography-filled corner before
+# the geometric prediction is trusted instead: a fill over occluded texture
+# has no corner signal to refine, and the refiner drifts.
+_FILL_TRUST_PX = 1.5
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Open items {item})")
 
 
-def _check_options(geom=False, det_quant=None):
+def _check_decode_options(detector, fused_head: bool, decode_capacity: int = 1,
+                          geom: bool = False, geom_fill: bool = False,
+                          geom_name: str = "geom_board_xy (geom decode)"):
+    """The decode options that exclude each other, as ``ValueError``s."""
+    if geom and decode_capacity > 1:
+        raise ValueError("geom decode and decode_capacity>1 are exclusive")
+    if geom_fill and not geom:
+        raise ValueError(f"geom_fill requires {geom_name}")
+    if not fused_head:
+        return
+    if decode_capacity > 1:
+        raise ValueError("fused_head=True decodes one winner per id in the kernel; "
+                         "decode_capacity > 1 needs fused_head=False")
     if geom:
-        _not_ported("the geometry decode (geom_*)", "A7")
-    if det_quant is not None:
-        _not_ported("the int8 detector", "A9")
+        raise ValueError("fused_head=True keeps the logits inside the kernel; the geometry "
+                         "decode reads them and its top-K candidates: it needs "
+                         "fused_head=False")
+    if isinstance(detector, QuantDetector):
+        raise ValueError("fused_head=True reads a bf16 trunk and float heads; the int8 "
+                         "detector decodes through the decode kernel: it needs "
+                         "fused_head=False")
 
 
 def _to_gray_input(frames: torch.Tensor) -> torch.Tensor:
@@ -150,7 +180,7 @@ def _apply_refiner(refinenet: RefineNet, patches: torch.Tensor,
     return refine_keypoints(heat, keypoints)
 
 
-def _decode(detector: Detector, g: torch.Tensor, n_ids: int, min_margin,
+def _decode(detector, g: torch.Tensor, n_ids: int, min_margin,
             fused_head: bool, folded):
     """Detector + one-slot decode on normalized gray frames."""
     if fused_head:
@@ -163,12 +193,44 @@ def _decode(detector: Detector, g: torch.Tensor, n_ids: int, min_margin,
     return pred_to_keypoints(out["loc"], out["ids"], n_ids, min_margin=min_margin)
 
 
+def _decode_geom(detector, g: torch.Tensor, n_ids: int, min_margin, board_xy,
+                 fill: bool, ransac: int, noise):
+    """Detector + geometry decode (+ fill) on normalized gray frames →
+    (keypoints, valid, filled). The fills are reckoned in the units of
+    ``g``'s pixel grid."""
+    dev = g.device
+    board_xy = torch.as_tensor(board_xy, dtype=torch.float32).to(dev)
+    if noise is not None:
+        noise = tuple(torch.as_tensor(t, dtype=torch.float32).to(dev) for t in noise)
+    out = detector(g)
+    keypoints, valid = pred_to_keypoints_geom(out["loc"], out["ids"], n_ids, board_xy,
+                                              min_margin=min_margin,
+                                              ransac_subsets=ransac, noise=noise)
+    if not fill:
+        return keypoints, valid, torch.zeros_like(valid)
+    return fill_from_homography(keypoints, valid, board_xy, tuple(g.shape[1:3]))
+
+
+def _trust_fills(refined: torch.Tensor, keypoints: torch.Tensor,
+                 filled: torch.Tensor) -> torch.Tensor:
+    """For a visible undetected corner the refinement sharpens the fill; for
+    an occluded one the patch carries no corner signal and the refiner
+    drifts, which would poison the pose. The refinement of a filled id is
+    kept only while it stays within ``_FILL_TRUST_PX`` of the geometric
+    prediction."""
+    drift = torch.linalg.vector_norm(refined - keypoints, dim=-1, keepdim=True)
+    keep = filled[..., None] & (drift > _FILL_TRUST_PX)
+    return torch.where(keep, keypoints.to(refined.dtype), refined)
+
+
 @torch.inference_mode()
-def two_stage_forward(detector: Detector, refinenet: Optional[RefineNet], frames,
+def two_stage_forward(detector, refinenet: Optional[RefineNet], frames,
                       n_ids: int, min_margin: Optional[float] = None,
                       soft_refine: bool = False, decode_capacity: int = 1,
                       rn_decode: Optional[str] = None, geom_board_xy=None,
-                      geom_fill: bool = False, fused_head: bool = False,
+                      geom_fill: bool = False, geom_ransac: int = 32,
+                      return_filled: bool = False, geom_noise=None,
+                      fused_head: bool = False,
                       folded: Optional[Dict[str, torch.Tensor]] = None,
                       device=None):
     """Detector → decode → patch gather → RefineNet → sub-pixel corners.
@@ -176,9 +238,12 @@ def two_stage_forward(detector: Detector, refinenet: Optional[RefineNet], frames
     ``frames`` (numpy or tensor) go to ``device``, where the models must
     already be. Returns (keypoints (N, n_ids, 2), valid (N, n_ids) bool,
     refined (N, n_ids, 2)) on that device; with no refinenet ``refined`` is
-    the raw keypoints. ``fused_head=True`` decodes through the fused
-    head + decode kernel with ``folded`` (``cuda_fused.head_params`` of the
-    detector on the device; made here when None).
+    the raw keypoints. ``detector`` is a
+    :class:`~deepcharuco_tpu_torch.models.Detector` or the int8
+    :class:`~deepcharuco_tpu_torch.models.quant.QuantDetector`.
+    ``fused_head=True`` decodes through the fused head + decode kernel with
+    ``folded`` (``cuda_fused.head_params`` of the detector on the device;
+    made here when None).
 
     ``rn_decode`` selects the refinement decode: ``"hard"`` (argmax, the
     default), ``"soft"`` (soft-argmax; ``soft_refine=True`` is the same),
@@ -190,37 +255,58 @@ def two_stage_forward(detector: Detector, refinenet: Optional[RefineNet], frames
     (``ops.pred_to_keypoints_topk``): K slots per id, every decoded cell
     refined. Shapes become (N, n_ids, K, 2) / (N, n_ids, K) /
     (N, n_ids, K, 2); slot [:, :, 0] is the default decode's winner. The
-    fused kernel keeps one winner per id, so it cannot serve this decode."""
-    _check_options(geom=geom_board_xy is not None or geom_fill)
-    if fused_head and decode_capacity > 1:
-        raise ValueError("fused_head=True decodes one winner per id in the kernel; "
-                         "decode_capacity > 1 needs fused_head=False")
+    fused kernel keeps one winner per id, so it cannot serve this decode.
+
+    ``geom_board_xy`` (the board's inner-corner plane coordinates,
+    (n_ids, 2)) switches to the geometry-consistent decode
+    (``ops.pred_to_keypoints_geom``) with ``geom_ransac`` seed subsets and
+    the Gumbel tables ``geom_noise`` (None → ``ops.geom.default_noise``);
+    exclusive with ``decode_capacity > 1`` and with ``fused_head``.
+    ``geom_fill`` (needs ``geom_board_xy``) also predicts every undetected
+    in-frame id at its homography-projected position
+    (``ops.fill_from_homography``) and refines it in the same RefineNet
+    pass. ``return_filled=True`` appends the ``filled`` mask (N, n_ids) to
+    the result (all False without ``geom_fill``)."""
+    geom = geom_board_xy is not None
+    _check_decode_options(detector, fused_head, decode_capacity, geom, geom_fill)
     dev = resolve_device(device)
     g = _to_gray_input(torch.as_tensor(frames).to(dev, non_blocking=True))
+    filled = None
     if decode_capacity > 1:
         out = detector(g)
         kp_k, valid = pred_to_keypoints_topk(out["loc"], out["ids"], n_ids,
                                              capacity=decode_capacity,
                                              min_margin=min_margin)
         keypoints = kp_k.reshape(kp_k.shape[0], n_ids * decode_capacity, 2)
+    elif geom:
+        keypoints, valid, filled = _decode_geom(detector, g, n_ids, min_margin,
+                                                geom_board_xy, geom_fill, geom_ransac,
+                                                geom_noise)
     else:
         keypoints, valid = _decode(detector, g, n_ids, min_margin, fused_head, folded)
+    if filled is None:
+        filled = torch.zeros_like(valid)
     out_shape = valid.shape + (2,)
     if refinenet is None:
-        keypoints = keypoints.reshape(out_shape)
-        return keypoints, valid, keypoints
-    patches = extract_patches(g, keypoints, patch_size=refinenet.patch_size)
-    mode = rn_decode or ("soft" if soft_refine else "hard")
-    refined = _apply_refiner(refinenet, patches, keypoints, mode)
-    return keypoints.reshape(out_shape), valid, refined.reshape(out_shape)
+        refined = keypoints = keypoints.reshape(out_shape)
+    else:
+        patches = extract_patches(g, keypoints, patch_size=refinenet.patch_size)
+        mode = rn_decode or ("soft" if soft_refine else "hard")
+        refined = _apply_refiner(refinenet, patches, keypoints, mode)
+        if geom_fill:
+            refined = _trust_fills(refined, keypoints, filled)
+        keypoints, refined = keypoints.reshape(out_shape), refined.reshape(out_shape)
+    return (keypoints, valid, refined, filled) if return_filled else \
+        (keypoints, valid, refined)
 
 
 @torch.inference_mode()
-def two_stage_forward_hires(detector: Detector, refinenet: RefineNet, frames_hi,
+def two_stage_forward_hires(detector, refinenet: RefineNet, frames_hi,
                             n_ids: int, min_margin: Optional[float] = None,
                             rn_decode: str = "soft", geom_board_xy=None,
-                            geom_fill: bool = False, scale: int = 2,
-                            fused_head: bool = False,
+                            geom_fill: bool = False, geom_ransac: int = 32,
+                            return_filled: bool = False, geom_noise=None,
+                            scale: int = 2, fused_head: bool = False,
                             folded: Optional[Dict[str, torch.Tensor]] = None,
                             device=None):
     """Hi-res patch tap: the detector on a ``scale``×-downsampled view,
@@ -236,20 +322,33 @@ def two_stage_forward_hires(detector: Detector, refinenet: RefineNet, frames_hi,
     log2(scale) times that is x_hi = s·x_lo + (s−1)/2, so refined hi-res
     positions map back as (x_hi − (s−1)/2)/s. Returns (keypoints, valid,
     refined) in LOW-res pixel units, comparable with
-    :func:`two_stage_forward`'s."""
-    _check_options(geom=geom_board_xy is not None or geom_fill)
+    :func:`two_stage_forward`'s. The geometry options are
+    :func:`two_stage_forward`'s; the fills and their trust guard live in
+    pooled-view (low-res) units."""
     if scale not in (2, 4):
         raise ValueError(f"hires tap supports scale 2 or 4, got {scale}")
+    geom = geom_board_xy is not None
+    _check_decode_options(detector, fused_head, 1, geom, geom_fill)
     dev = resolve_device(device)
     g_hi = _to_gray_input(torch.as_tensor(frames_hi).to(dev, non_blocking=True))
     g_lo = g_hi
     for _ in range(scale.bit_length() - 1):
         g_lo = downsample2x(g_lo)
-    keypoints, valid = _decode(detector, g_lo, n_ids, min_margin, fused_head, folded)
+    if geom:
+        keypoints, valid, filled = _decode_geom(detector, g_lo, n_ids, min_margin,
+                                                geom_board_xy, geom_fill, geom_ransac,
+                                                geom_noise)
+    else:
+        keypoints, valid = _decode(detector, g_lo, n_ids, min_margin, fused_head, folded)
+        filled = torch.zeros_like(valid)
     kp_hi = float(scale) * keypoints            # integer patch centers, hi-res frame
     patches = extract_patches(g_hi, kp_hi, patch_size=refinenet.patch_size)
     refined_hi = _apply_refiner(refinenet, patches, kp_hi, rn_decode)
-    return keypoints, valid, (refined_hi - (scale - 1) * 0.5) / scale
+    refined = (refined_hi - (scale - 1) * 0.5) / scale
+    if geom_fill:
+        refined = _trust_fills(refined, keypoints, filled)
+    return (keypoints, valid, refined, filled) if return_filled else \
+        (keypoints, valid, refined)
 
 
 def _solve(object_points, refined, valid, K, dist, pnp_iters):
@@ -260,48 +359,67 @@ def _solve(object_points, refined, valid, K, dist, pnp_iters):
 
 
 @torch.inference_mode()
-def full_forward(detector: Detector, refinenet: Optional[RefineNet], frames,
+def full_forward(detector, refinenet: Optional[RefineNet], frames,
                  n_ids: int, object_points, K, dist, pnp_iters: int = 20,
                  soft_refine: bool = False, min_margin: Optional[float] = None,
                  rn_decode: Optional[str] = None, geom_board_xy=None,
-                 geom_fill: bool = False, fused_head: bool = False,
+                 geom_fill: bool = False, geom_ransac: int = 32, geom_noise=None,
+                 fused_head: bool = False,
                  folded: Optional[Dict[str, torch.Tensor]] = None, device=None):
     """:func:`two_stage_forward` + batched planar PnP. Returns (keypoints,
-    valid, refined, ok (N,), rvec (N, 3), tvec (N, 3), reproj_rms (N,))."""
-    keypoints, valid, refined = two_stage_forward(
+    valid, refined, ok (N,), rvec (N, 3), tvec (N, 3), reproj_rms (N,)).
+
+    With ``geom_fill`` the pose is solved from the measured detections only:
+    filled corners lie on the fitted homography by construction, add no
+    independent evidence, and their correlated extrapolation error would
+    bias the pose. The returned corner set still holds the fills."""
+    keypoints, valid, refined, filled = two_stage_forward(
         detector, refinenet, frames, n_ids, min_margin=min_margin,
         soft_refine=soft_refine, rn_decode=rn_decode, geom_board_xy=geom_board_xy,
-        geom_fill=geom_fill, fused_head=fused_head, folded=folded, device=device)
+        geom_fill=geom_fill, geom_ransac=geom_ransac, return_filled=True,
+        geom_noise=geom_noise, fused_head=fused_head, folded=folded, device=device)
     return (keypoints, valid, refined,
-            *_solve(object_points, refined, valid, K, dist, pnp_iters))
+            *_solve(object_points, refined, valid & ~filled, K, dist, pnp_iters))
 
 
 @torch.inference_mode()
-def full_forward_hires(detector: Detector, refinenet: RefineNet, frames_hi,
+def full_forward_hires(detector, refinenet: RefineNet, frames_hi,
                        n_ids: int, object_points, K, dist, pnp_iters: int = 20,
                        min_margin: Optional[float] = None, rn_decode: str = "soft",
-                       geom_board_xy=None, geom_fill: bool = False, scale: int = 2,
+                       geom_board_xy=None, geom_fill: bool = False,
+                       geom_ransac: int = 32, geom_noise=None, scale: int = 2,
                        fused_head: bool = False,
                        folded: Optional[Dict[str, torch.Tensor]] = None, device=None):
-    """:func:`two_stage_forward_hires` + batched planar PnP.
+    """:func:`two_stage_forward_hires` + batched planar PnP (from the
+    measured detections only, as :func:`full_forward`).
 
     ``K``/``dist`` must be in the LOW-res (pooled-view) pixel units the tap
     reports corners in: convert a camera calibrated at the hi-res input
     resolution with ``Camera.scaled(1/scale)``."""
-    keypoints, valid, refined = two_stage_forward_hires(
+    keypoints, valid, refined, filled = two_stage_forward_hires(
         detector, refinenet, frames_hi, n_ids, min_margin=min_margin,
         rn_decode=rn_decode, geom_board_xy=geom_board_xy, geom_fill=geom_fill,
+        geom_ransac=geom_ransac, return_filled=True, geom_noise=geom_noise,
         scale=scale, fused_head=fused_head, folded=folded, device=device)
     return (keypoints, valid, refined,
-            *_solve(object_points, refined, valid, K, dist, pnp_iters))
+            *_solve(object_points, refined, valid & ~filled, K, dist, pnp_iters))
 
 
-def _is_quantized_npz(path: Optional[str]) -> bool:
-    if not (path and str(path).endswith(".npz") and os.path.isfile(path)):
+def is_quantized_npz(ckpt: Optional[str]) -> bool:
+    """True if ``ckpt`` is an int8 detector artifact (the layout
+    ``models.quant.qvars_to_npz`` writes): the ``__quant__`` marker key, or,
+    for artifacts written before the marker, a flat ``conv1a/w`` kernel that
+    is int8. A missing or corrupt file gives False, so that the float loader
+    raises its own, clearer error."""
+    if not (ckpt and str(ckpt).endswith(".npz") and os.path.isfile(ckpt)):
         return False
-    with np.load(path) as z:
-        return "__quant__" in z.files or (
-            "conv1a/w" in z.files and z["conv1a/w"].dtype == np.int8)
+    try:
+        with np.load(ckpt) as z:
+            if "__quant__" in z.files:
+                return True
+            return "conv1a/w" in z.files and z["conv1a/w"].dtype == np.int8
+    except (OSError, ValueError, zipfile.BadZipFile):
+        return False
 
 
 def _load_variables(ckpt: Optional[str], kind: str, n_ids: int = 16):
@@ -317,30 +435,49 @@ def _load_variables(ckpt: Optional[str], kind: str, n_ids: int = 16):
     return variables_from_npz(ckpt)
 
 
+def load_detector_any(ckpt: Optional[str], n_ids: int,
+                      compute_dtype=torch.bfloat16, device=None):
+    """The detector for any detector weight file, in eval mode on ``device``
+    (None → the card): a :class:`~deepcharuco_tpu_torch.models.Detector` in
+    ``compute_dtype`` for float weights (None → seeded random ones), or the
+    int8 :class:`~deepcharuco_tpu_torch.models.quant.QuantDetector` when
+    ``ckpt`` is a quantized artifact (:func:`is_quantized_npz`)."""
+    dev = resolve_device(device)
+    if is_quantized_npz(ckpt):
+        return QuantDetector(qvars_from_npz(ckpt), n_ids).to(dev).eval()
+    det = Detector(n_ids=n_ids, dtype=compute_dtype)
+    sd = detector_state_dict(_load_variables(ckpt, "detector", n_ids))
+    return load_state(det, sd).to(dev).eval()
+
+
 def load_pipeline(config: Config, deepc_ckpt: Optional[str] = None,
                   refinenet_ckpt: Optional[str] = None,
                   camera: Optional[Camera] = None,
                   compute_dtype=torch.bfloat16, rn_upsample: str = "nearest",
                   rn_patch_size: int = 24, rn_decode: Optional[str] = None,
                   hires=False, geom_decode: bool = False, geom_fill: bool = False,
+                  geom_ransac: int = 32, geom_noise=None,
                   min_margin: Optional[float] = None, pnp_iters: int = 20,
                   soft_refine: bool = False, decode_capacity: int = 1,
                   fused_head: bool = False, device=None) -> "InferencePipeline":
     """An :class:`InferencePipeline` from ``.npz`` weight files (None → the
     detector gets seeded random weights, the refiner is left out).
-    ``hires``: False (base resolution), True/2 (2× patch tap), or 4."""
-    if _is_quantized_npz(deepc_ckpt):
-        _not_ported("the int8 detector", "A9")
-    dv = _load_variables(deepc_ckpt, "detector", config.n_ids)
+    ``hires``: False (base resolution), True/2 (2× patch tap), or 4. An int8
+    detector artifact is recognised by its layout and served through
+    :class:`~deepcharuco_tpu_torch.models.quant.QuantDetector`; no flag."""
+    det_quant = "int8" if is_quantized_npz(deepc_ckpt) else None
+    dv = (qvars_from_npz(deepc_ckpt) if det_quant
+          else _load_variables(deepc_ckpt, "detector", config.n_ids))
     rv = (_load_variables(refinenet_ckpt, "refinenet")
           if refinenet_ckpt is not None else None)
-    return InferencePipeline(config, dv, rv, camera=camera,
+    return InferencePipeline(config, dv, rv, camera=camera, det_quant=det_quant,
                              compute_dtype=compute_dtype, pnp_iters=pnp_iters,
                              soft_refine=soft_refine, min_margin=min_margin,
                              rn_upsample=rn_upsample, rn_patch_size=rn_patch_size,
                              decode_capacity=decode_capacity,
                              rn_decode=rn_decode, hires=hires,
                              geom_decode=geom_decode, geom_fill=geom_fill,
+                             geom_ransac=geom_ransac, geom_noise=geom_noise,
                              fused_head=fused_head, device=device)
 
 
@@ -359,7 +496,16 @@ class InferencePipeline:
 
     ``decode_capacity > 1`` gives :meth:`detect` K slots per id. The pose
     path is per id by construction (object points are indexed by id), so
-    :meth:`detect_with_pose` always runs the one-slot decode."""
+    :meth:`detect_with_pose` always runs the one-slot decode.
+
+    ``geom_decode`` reselects each id's candidate by planar-homography
+    consistency with the board (``ops/geom.py``; ``geom_ransac`` seed
+    subsets, ``geom_noise`` its Gumbel tables or None for the seeded
+    default), ``geom_fill`` adds the homography-predicted undetected ids;
+    the pose is solved from the measured detections only.
+    ``det_quant="int8"`` takes ``det_vars`` as the int8 tree of
+    ``models.quant`` and serves it through ``QuantDetector``. Both decode
+    from the logits: with ``fused_head=True`` they raise ``ValueError``."""
 
     def __init__(self, config: Config, det_vars, rn_vars=None,
                  camera: Optional[Camera] = None,
@@ -368,9 +514,19 @@ class InferencePipeline:
                  rn_upsample: str = "nearest", rn_patch_size: int = 24,
                  decode_capacity: int = 1, rn_decode: Optional[str] = None,
                  hires=False, geom_decode: bool = False, geom_fill: bool = False,
+                 geom_ransac: int = 32, geom_noise=None,
                  det_quant: Optional[str] = None, fused_head: bool = False,
                  device=None):
-        _check_options(geom=geom_decode or geom_fill, det_quant=det_quant)
+        if det_quant not in (None, "int8"):
+            raise ValueError(f"unknown det_quant {det_quant!r}")
+        self.device = resolve_device(device)
+        if det_quant == "int8":
+            detector = QuantDetector(det_vars, config.n_ids)
+        else:
+            detector = load_state(Detector(n_ids=config.n_ids, dtype=compute_dtype),
+                                  detector_state_dict(det_vars))
+        _check_decode_options(detector, fused_head, decode_capacity, geom_decode,
+                              geom_fill, geom_name="geom_decode=True")
         self.hires_scale = (2 if hires is True else int(hires)) if hires else 1
         self.hires = bool(hires)
         if hires:
@@ -381,10 +537,6 @@ class InferencePipeline:
                                  "(the full-res patches ARE the point)")
             if decode_capacity > 1:
                 raise ValueError("hires does not support decode_capacity > 1")
-        if fused_head and decode_capacity > 1:
-            raise ValueError("fused_head=True decodes one winner per id in the "
-                             "kernel; decode_capacity > 1 needs fused_head=False")
-        self.device = resolve_device(device)
         self.config = config
         self.n_ids = config.n_ids
         self.min_margin = min_margin
@@ -393,8 +545,7 @@ class InferencePipeline:
         self.decode_capacity = decode_capacity
         self.rn_decode = (rn_decode or "soft") if hires else \
             rn_decode or ("soft" if soft_refine else "hard")
-        det = Detector(n_ids=config.n_ids, dtype=compute_dtype)
-        self.detector = load_state(det, detector_state_dict(det_vars)).to(self.device).eval()
+        self.detector = detector.to(self.device).eval()
         self.refinenet = None
         if rn_vars is not None:
             self.refinenet = self._refinenet(rn_vars, compute_dtype, rn_upsample,
@@ -405,6 +556,10 @@ class InferencePipeline:
         as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
         self.object_points = as_dev(inner_corner_object_points(
             config.row_count, config.col_count, config.square_len))
+        self._geom = dict(
+            geom_board_xy=self.object_points[:, :2] if geom_decode else None,
+            geom_fill=geom_fill, geom_ransac=geom_ransac,
+            geom_noise=None if geom_noise is None else tuple(as_dev(t) for t in geom_noise))
         self._pose_graphs: Dict[int, tuple] = {}
         if camera is not None:
             cam = camera.scaled(1.0 / self.hires_scale) if hires else camera
@@ -477,10 +632,21 @@ class InferencePipeline:
             out = solve(r_in, v_in)
         return graph, r_in, v_in, out
 
-    def _forward(self, frames, with_pose: bool):
+    @torch.inference_mode()
+    def forward_device(self, frames, with_pose: bool = False):
+        """The device-level entry: frames (a tensor already on the
+        pipeline's device, or anything :func:`two_stage_forward` takes) →
+        the tuple of :meth:`detect` or :meth:`detect_with_pose` as tensors on
+        the device. Everything is enqueued on the current stream; nothing is
+        copied to the host and the host waits for nothing. With pose on the
+        card the last four are the pose graph's own buffers
+        (:meth:`solve_pose`): read or copy them, in stream order, before the
+        next call."""
+        if with_pose and self.camera is None:
+            raise ValueError("InferencePipeline was built without a Camera")
         common = dict(min_margin=self.min_margin, rn_decode=self.rn_decode,
                       fused_head=self.fused_head, folded=self.folded,
-                      device=self.device)
+                      return_filled=True, device=self.device, **self._geom)
         if self.hires:
             out = two_stage_forward_hires(self.detector, self.refinenet, frames,
                                           self.n_ids, scale=self.hires_scale, **common)
@@ -489,9 +655,15 @@ class InferencePipeline:
                 common.update(decode_capacity=self.decode_capacity)
             out = two_stage_forward(self.detector, self.refinenet, frames,
                                     self.n_ids, **common)
-        if with_pose:
-            out = (*out, *self.solve_pose(out[2].float(), out[1]))
-        return tuple(t.cpu().numpy() for t in out)
+        keypoints, valid, refined, filled = out
+        if not with_pose:
+            return keypoints, valid, refined
+        # the pose comes from the measured detections only (full_forward)
+        return (keypoints, valid, refined,
+                *self.solve_pose(refined.float(), valid & ~filled))
+
+    def _forward(self, frames, with_pose: bool):
+        return tuple(t.cpu().numpy() for t in self.forward_device(frames, with_pose))
 
     def detect(self, frames: np.ndarray):
         """frames: (N,H,W,3) BGR uint8 / (N,H,W) gray →
@@ -500,8 +672,6 @@ class InferencePipeline:
 
     def detect_with_pose(self, frames: np.ndarray):
         """→ (keypoints, valid, refined, ok, rvec, tvec, reproj_rms)."""
-        if self.camera is None:
-            raise ValueError("InferencePipeline was built without a Camera")
         return self._forward(frames, with_pose=True)
 
     def input_coords(self, xy: np.ndarray) -> np.ndarray:
@@ -529,6 +699,6 @@ class InferencePipeline:
         return np.concatenate([rows, ids[:, None].astype(refined.dtype)], axis=1)
 
 
-__all__ = ["Camera", "InferencePipeline", "load_pipeline", "two_stage_forward",
-           "two_stage_forward_hires", "full_forward", "full_forward_hires",
-           "resolve_device"]
+__all__ = ["Camera", "InferencePipeline", "load_pipeline", "load_detector_any",
+           "is_quantized_npz", "two_stage_forward", "two_stage_forward_hires",
+           "full_forward", "full_forward_hires", "resolve_device"]

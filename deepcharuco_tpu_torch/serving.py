@@ -1,0 +1,334 @@
+"""Serving: multi-stream video inference with pipelined transfers
+(``deepcharuco_tpu.serving``).
+
+N independent video streams go through one
+:class:`~deepcharuco_tpu_torch.pipeline.InferencePipeline` with
+
+- **batch aggregation**: one frame of every live stream forms one device
+  batch, padded to a fixed capacity (one set of cuDNN plans and one pose
+  graph per server, not one per batch size);
+- **transfers that overlap compute**: batch k+1 is gathered, uploaded and
+  launched while batch k still runs, and the host waits only for the batch
+  it is about to hand out.
+
+:class:`StreamServer` is the latency-first pull loop, one batch per step;
+:class:`DeviceQueueServer` gathers ``chunk`` steps of every stream into one
+block and one launch (throughput first, ``chunk`` frame intervals of added
+latency); :func:`pipelined_map` pipelines a function over batches that are
+already formed.
+
+How the overlap is made on the card (:class:`_Lane`). A pageable numpy
+batch does not upload asynchronously, so frames are gathered straight into
+pinned staging buffers (as many as batches in flight, reused; an event
+guards the reuse) and uploaded on a copy stream; the compute stream waits on
+the upload's event. Each batch's device-to-host copies go into pinned host
+tensors on the compute stream, right behind its compute, and an event is
+recorded after them. That order matters: the pose tail's outputs are the
+buffers of one CUDA graph (``InferencePipeline.solve_pose``), which the
+next batch's replay overwrites, so they are copied out before it in stream
+order. Handing a batch out waits on its event and on nothing else. On the
+CPU the same code runs without streams.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from deepcharuco_tpu_torch._device import resolve_device
+
+# Peak bytes of device memory per input pixel that served two-stage batches
+# take above what the pipeline holds at rest, bf16, default (heads + decode)
+# path. Measured with torch.cuda.max_memory_allocated by chip_smoke.py (phase
+# 12) on an NVIDIA H100 80GB HBM3, 700.00 W: 391.1 bytes per pixel, for 256
+# frames of 240×320 and for 64 frames of 480×640 alike. Rounded up.
+TWO_STAGE_BYTES_PER_PIXEL = 400
+
+RESULT_KEYS = ("keypoints", "valid", "refined", "ok", "rvec", "tvec", "reproj_rms")
+
+
+def _device_bytes(device) -> Optional[int]:
+    """Total memory of a CUDA device; None for the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def _budget(hbm_bytes: Optional[float], device) -> float:
+    if hbm_bytes is None:
+        hbm_bytes = _device_bytes(resolve_device(device))
+        if hbm_bytes is None:
+            raise ValueError("the CPU has no device memory to budget: pass hbm_bytes")
+    return hbm_bytes
+
+
+def two_stage_batch_ceiling(h: int, w: int, hbm_bytes: Optional[float] = None,
+                            device=None) -> int:
+    """The largest two-stage batch of (h, w) frames that fits ``hbm_bytes``
+    of device memory (None → the total memory of ``device``, None → the
+    card) under the measured footprint ``TWO_STAGE_BYTES_PER_PIXEL``."""
+    return int(_budget(hbm_bytes, device) // (h * w * TWO_STAGE_BYTES_PER_PIXEL))
+
+
+def check_hbm_budget(batch: int, h: int, w: int, hbm_bytes: Optional[float] = None,
+                     context: str = "", device=None) -> None:
+    """Fail fast when a two-stage batch cannot fit the device's memory:
+    ``ValueError`` with the estimate, the ceiling and a suggested batch, in
+    place of an allocation error in the middle of a run. ``hbm_bytes`` None →
+    the total memory of ``device`` (None → the card)."""
+    hbm_bytes = _budget(hbm_bytes, device)
+    est = batch * h * w * TWO_STAGE_BYTES_PER_PIXEL
+    if est <= hbm_bytes:
+        return
+    ceiling = two_stage_batch_ceiling(h, w, hbm_bytes)
+    raise ValueError(
+        f"{context or 'two-stage batch'} of {batch} frames @ {w}x{h} needs "
+        f"~{est / 1e9:.1f} GB of two-stage activations, over the "
+        f"{hbm_bytes / 1e9:.2f} GB of device memory "
+        f"({TWO_STAGE_BYTES_PER_PIXEL} bytes per pixel measured). Largest batch that "
+        f"fits at this resolution: ~{ceiling}. Lower the batch, the chunk or the "
+        f"stream count so that batch <= {ceiling}.")
+
+
+class _Lane:
+    """Upload → compute → download of batches in flight on one device, the
+    host waiting only in :meth:`fetch` (and in :meth:`stage` for a staging
+    buffer whose last upload has not left it yet, which with ``depth``
+    buffers for ``depth`` batches in flight it has)."""
+
+    def __init__(self, device, depth: int = 2):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self._depth = depth
+        self._turn = 0
+        self._staging: List[Optional[torch.Tensor]] = [None] * depth
+        self._uploaded: List[Optional["torch.cuda.Event"]] = [None] * depth
+        self._copy_stream = torch.cuda.Stream(self.device) if self.cuda else None
+
+    def stage(self, shape: Tuple[int, ...], dtype) -> np.ndarray:
+        """The next staging buffer as a numpy array to gather frames into
+        (its content is undefined). On the card it is pinned memory."""
+        if not self.cuda:
+            self._staged = torch.from_numpy(np.empty(shape, dtype))
+            return self._staged.numpy()
+        slot = self._turn % self._depth
+        self._turn += 1
+        if self._uploaded[slot] is not None:
+            self._uploaded[slot].synchronize()
+        buf = self._staging[slot]
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != tdtype:
+            buf = self._staging[slot] = torch.empty(shape, dtype=tdtype, pin_memory=True)
+        self._staged, self._slot = buf, slot
+        return buf.numpy()
+
+    def upload(self) -> torch.Tensor:
+        """The staged batch on the device. On the card the copy runs on the
+        copy stream and the current (compute) stream waits for it."""
+        if not self.cuda:
+            return self._staged
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            x = self._staged.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        self._uploaded[self._slot] = done
+        compute.wait_event(done)
+        x.record_stream(compute)    # allocated on the copy stream, read on this one
+        return x
+
+    def download(self, outs: Sequence[torch.Tensor]):
+        """Enqueue the copies of ``outs`` to the host behind the work that
+        makes them; returns what :meth:`fetch` takes."""
+        if not self.cuda:
+            return list(outs), None
+        with torch.cuda.device(self.device):
+            host = [t.to("cpu", non_blocking=True) for t in outs]     # pinned
+            done = torch.cuda.Event()
+            done.record()
+        return host, done
+
+    @staticmethod
+    def fetch(pending) -> List[np.ndarray]:
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        return [t.numpy() for t in host]
+
+
+def _as_tuple(out):
+    return (out,) if torch.is_tensor(out) else tuple(out)
+
+
+def pipelined_map(fn: Callable, batches: Iterable[np.ndarray], depth: int = 2,
+                  device=None) -> Iterator:
+    """Apply ``fn`` (a device tensor in, a tensor or a tuple of tensors on
+    the device out, nothing copied to the host inside) over an iterator of
+    host batches with ``depth`` batches in flight on ``device`` (None → the
+    card). Yields the results as numpy arrays, in order."""
+    lane = _Lane(resolve_device(device), depth)
+    q: collections.deque = collections.deque()
+    it = iter(batches)
+
+    def submit() -> bool:
+        try:
+            host = np.asarray(next(it))
+        except StopIteration:
+            return False
+        lane.stage(host.shape, host.dtype)[...] = host
+        out = fn(lane.upload())
+        q.append((torch.is_tensor(out), lane.download(_as_tuple(out))))
+        return True
+
+    for _ in range(depth):
+        if not submit():
+            break
+    while q:
+        single, pending = q.popleft()
+        submit()
+        host = _Lane.fetch(pending)
+        yield host[0] if single else tuple(host)
+
+
+class VideoStream:
+    """One video source: any iterable of BGR or gray uint8 frames of a
+    fixed (H, W)."""
+
+    def __init__(self, frames: Iterable[np.ndarray], name: str = ""):
+        self._it = iter(frames)
+        self.name = name
+        self.done = False
+
+    def next_frame(self) -> Optional[np.ndarray]:
+        if self.done:
+            return None
+        try:
+            return next(self._it)
+        except StopIteration:
+            self.done = True
+            return None
+
+
+def _pull_step(streams: Sequence[VideoStream]):
+    """One frame of every live stream: (frames, their stream indices)."""
+    frames, idxs = [], []
+    for i, s in enumerate(streams):
+        f = s.next_frame()
+        if f is not None:
+            frames.append(np.asarray(f))
+            idxs.append(i)
+    return frames, idxs
+
+
+def _rows(host: List[np.ndarray], base: int, idxs: List[int]) -> Dict[int, dict]:
+    """{stream index: result dict} of one step whose rows start at ``base``."""
+    return {stream: {key: arr[base + row] for key, arr in zip(RESULT_KEYS, host)}
+            for row, stream in enumerate(idxs)}
+
+
+class StreamServer:
+    """Aggregates streams into pipeline batches, one frame of each per step.
+
+    Each step pulls one frame per live stream, pads the batch to the number
+    of streams, runs the pipeline's device-level entry
+    (``InferencePipeline.forward_device``) and yields per-stream results.
+    One extra batch is kept in flight: batch k+1 is gathered, uploaded and
+    launched before batch k is fetched. The server runs on the pipeline's
+    device."""
+
+    def __init__(self, pipeline, streams: Sequence[VideoStream], with_pose: bool = False):
+        self.pipeline = pipeline
+        self.streams = list(streams)
+        self.with_pose = with_pose
+        self.capacity = len(self.streams)
+        self._lane = _Lane(resolve_device(pipeline.device), depth=2)
+
+    def _launch(self):
+        frames, idxs = _pull_step(self.streams)
+        if not frames:
+            return None
+        batch = self._lane.stage((self.capacity, *frames[0].shape), frames[0].dtype)
+        for row, f in enumerate(frames):
+            batch[row] = f
+        batch[len(frames):] = 0      # pad to capacity: one shape for the whole run
+        out = self.pipeline.forward_device(self._lane.upload(), self.with_pose)
+        return idxs, self._lane.download(out)
+
+    def run(self) -> Iterator[Dict[int, dict]]:
+        """Yields {stream_index: result dict} per step until every stream
+        has ended."""
+        pending = self._launch()
+        while pending is not None:
+            idxs, out = pending
+            pending = self._launch()        # the next batch is in flight
+            yield _rows(_Lane.fetch(out), 0, idxs)
+
+
+class DeviceQueueServer:
+    """Chunked multi-stream serving: ``chunk`` consecutive frames of every
+    stream form one ``(chunk·B, H, W)`` block, one upload and one launch,
+    and blocks are double-buffered as :class:`StreamServer`'s batches are.
+    The launch's fixed costs (the host's work per batch, the pose graph's
+    replay) are shared by ``chunk`` steps at the price of ``chunk`` frame
+    intervals of latency. Yields the same per-step dicts as
+    :meth:`StreamServer.run`, in the same order.
+
+    The first launch is refused (``ValueError``) when the block cannot fit
+    the device's memory (:func:`check_hbm_budget`; ``hbm_bytes`` None → the
+    total memory of the pipeline's card, and no check on the CPU). Under a
+    hi-res pipeline the detector, which holds the large activations, sees
+    the pooled view, so the budget is reckoned at that resolution."""
+
+    def __init__(self, pipeline, streams: Sequence[VideoStream], chunk: int = 8,
+                 with_pose: bool = False, hbm_bytes: Optional[float] = None):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.pipeline = pipeline
+        self.streams = list(streams)
+        self.chunk = chunk
+        self.with_pose = with_pose
+        self.capacity = len(self.streams)
+        device = resolve_device(pipeline.device)
+        self.hbm_bytes = hbm_bytes if hbm_bytes is not None else _device_bytes(device)
+        self._lane = _Lane(device, depth=2)
+
+    def _launch(self):
+        steps = []
+        for _ in range(self.chunk):
+            frames, idxs = _pull_step(self.streams)
+            if not frames:
+                break
+            steps.append((frames, idxs))
+        if not steps:
+            return None
+        first = steps[0][0][0]
+        n = self.chunk * self.capacity
+        if self.hbm_bytes is not None:
+            s = getattr(self.pipeline, "hires_scale", 1) or 1
+            check_hbm_budget(n, first.shape[0] // s, first.shape[1] // s, self.hbm_bytes,
+                             context=f"DeviceQueueServer chunk={self.chunk} x "
+                                     f"{self.capacity} streams")
+        # short steps and a short last chunk are padded with zero frames:
+        # one shape (chunk·capacity) serves the whole run
+        block = self._lane.stage((n, *first.shape), first.dtype)
+        for step, (frames, _) in enumerate(steps):
+            base = step * self.capacity
+            for row, f in enumerate(frames):
+                block[base + row] = f
+            block[base + len(frames):base + self.capacity] = 0
+        block[len(steps) * self.capacity:] = 0
+        out = self.pipeline.forward_device(self._lane.upload(), self.with_pose)
+        return [idxs for _, idxs in steps], self._lane.download(out)
+
+    def run(self) -> Iterator[Dict[int, dict]]:
+        pending = self._launch()
+        while pending is not None:
+            step_idxs, out = pending
+            pending = self._launch()        # the next chunk is in flight
+            host = _Lane.fetch(out)
+            for step, idxs in enumerate(step_idxs):
+                yield _rows(host, step * self.capacity, idxs)

@@ -5,8 +5,10 @@ Runs ``pnp.solve_pnp_batch`` on 256 synthetic views under
 ``torch.profiler`` and prints how many ``aten`` calls it makes, all of them
 and those that are not views or allocations (nested calls included, so the
 second figure is an upper estimate of the kernels the same call launches on
-a card), for the whole solver and for its parts. A count, not a time: the
-pose tail's times come from ``chip_smoke.py`` on the card.
+a card), for the whole solver and for its parts, and the same two counts
+for the geometry decode (``ops.geom``: ``pred_to_keypoints_geom`` on random
+logits of 256 frames, its RANSAC seed, and the fill). A count, not a time:
+the times come from ``chip_smoke.py`` on the card.
 
 Run from anywhere: ``python3 scripts/count_torch_port_pose_ops.py``.
 """
@@ -23,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from deepcharuco_tpu_torch.board import inner_corner_object_points  # noqa: E402
+from deepcharuco_tpu_torch.ops import geom as G  # noqa: E402
 from deepcharuco_tpu_torch.pnp import projection as P  # noqa: E402
 from deepcharuco_tpu_torch.pnp import smallmath as M  # noqa: E402
 from deepcharuco_tpu_torch.pnp import solve as S  # noqa: E402
@@ -76,6 +79,17 @@ def main() -> int:
         "project_points_jacobian": lambda: P.project_points_jacobian(obj, rvec, tvec, K, dist),
         "cholesky_solve 6×6": lambda: M.cholesky_solve(A, b),
     }
+    loc = torch.from_numpy(rng.normal(size=(N, 30, 40, 65)).astype(np.float32))
+    ids = torch.from_numpy(rng.normal(size=(N, 30, 40, 17)).astype(np.float32))
+    xy = obj[:, :2]
+    kp_k = img[:, :, None, :].expand(N, 16, 5, 2).contiguous()
+    val_k = torch.ones(N, 16, 5, dtype=torch.bool)
+    parts.update({
+        f"pred_to_keypoints_geom, {N} frames": lambda: G.pred_to_keypoints_geom(
+            loc, ids, 16, xy),
+        "_ransac_seed, 32 subsets": lambda: G._ransac_seed(kp_k, val_k, xy, 32, 4.0),
+        "fill_from_homography": lambda: G.fill_from_homography(img, valid, xy, (240, 320)),
+    })
     for name, fn in parts.items():
         total, kernels = count(fn)
         print(f"{name}: {total} aten calls, {kernels} that are not views or allocations")

@@ -29,7 +29,18 @@ frames:
   ``denseOb``) from a seeded Flax ``init`` (``PRNGKey(7)``), stored as
   float16 under '/'-joined variable paths, and ``refined_{offset,avg}_{bf16,f32}``:
   ``two_stage_forward`` with that branch (cast back to float32) on top of the
-  shipped 24-px weights and ``rn_decode="offset"``/``"avg"``.
+  shipped 24-px weights and ``rn_decode="offset"``/``"avg"``;
+- ``geom_noise_g`` (32, 16), ``geom_noise_gs`` (32, 16, 5): the Gumbel
+  tables that ``ops.geom._ransac_seed`` draws from ``PRNGKey(0)`` for 32
+  subsets of 16 ids × 5 candidate slots (they do not depend on the frames);
+- ``{keypoints,valid,refined,filled,ok,rvec,tvec,rms}_{geom,geomfill}_{bf16,f32}``:
+  ``full_forward`` with ``geom_board_xy`` (and ``geom_fill``), 24-px hard
+  decode, with ``filled`` from ``two_stage_forward(return_filled=True)``;
+  ``..._hires_{geom,geomfill}_{bf16,f32}``: ``full_forward_hires`` at scale
+  2 on ``frames_hi`` with the same options (32-px RefineNet, soft decode);
+- ``{keypoints,valid,refined}_int8``: ``load_pipeline`` on the shipped int8
+  detector (``artifacts/detector_devsynth_int8.npz``) with the bf16 24-px
+  RefineNet, ``detect`` on the frames.
 
 Run from the repository root: ``python scripts/make_torch_port_fixture.py``.
 The file is regenerated only by this script.
@@ -57,17 +68,20 @@ from deepcharuco_tpu.ops import normalize_gray  # noqa: E402
 from deepcharuco_tpu.ops.pallas_fused import (fold_head_params,  # noqa: E402
                                               pallas_fused_head_decode)
 from deepcharuco_tpu.pipeline import (Camera, full_forward, full_forward_hires,  # noqa: E402
-                                      two_stage_forward, variables_from_npz)
+                                      load_pipeline, two_stage_forward,
+                                      two_stage_forward_hires, variables_from_npz)
 
 OUT = os.path.join("tests", "data", "torch_port_frames.npz")
 DET = "artifacts/detector_devsynth.npz"
 RN = "artifacts/refinenet_devsynth.npz"
 RN32 = "artifacts/refinenet32_devsynth.npz"
+DET_INT8 = "artifacts/detector_devsynth_int8.npz"
 K = np.array([[420.0, 0.0, 160.0], [0.0, 420.0, 120.0], [0.0, 0.0, 1.0]], np.float32)
 K_HI = np.array([[840.0, 0.0, 320.0], [0.0, 840.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
 DIST = np.array([0.05, -0.02, 0.001, -0.0015, 0.01], np.float32)
 OBJ = inner_corner_object_points(5, 5, 0.01)
 POSE_KEYS = ("keypoints", "valid", "refined", "ok", "rvec", "tvec", "rms")
+GEOM_KEYS = POSE_KEYS + ("filled",)
 OFFSET_LAYERS = ("convOa", "denseOa", "denseOb")
 
 
@@ -154,6 +168,49 @@ def jax_offset(x: np.ndarray, flat: dict, dtype) -> dict:
     return out
 
 
+def geom_noise(n_subsets: int = 32, n_ids: int = 16, capacity: int = 5):
+    """The two Gumbel tables of ``ops.geom._ransac_seed``, drawn as it
+    draws them: (g (S, n_ids), gs (S, n_ids, C))."""
+    def draw(k):
+        k1, k2 = jax.random.split(k)
+        return (jax.random.gumbel(k1, (n_ids,)),
+                jax.random.gumbel(k2, (n_ids, capacity)))
+
+    g, gs = jax.vmap(draw)(jax.random.split(jax.random.PRNGKey(0), n_subsets))
+    return np.asarray(g), np.asarray(gs)
+
+
+def jax_geom(x: np.ndarray, dtype, fill: bool, hires: bool) -> dict:
+    """The pose path under the geometry decode, plus the ``filled`` mask."""
+    det = Detector(n_ids=16, dtype=dtype)
+    dv = variables_from_npz(DET)
+    xy = jnp.asarray(OBJ[:, :2])
+    if hires:
+        rn, rv = RefineNet(dtype=dtype, patch_size=32), variables_from_npz(RN32)
+        cam = Camera(K=K_HI, dist=DIST).scaled(0.5)
+        kw = dict(rn_decode="soft", geom_board_xy=xy, geom_fill=fill, scale=2)
+
+        def fn(dv, rv, x):
+            return (*full_forward_hires(det, rn, dv, rv, x, 16, jnp.asarray(OBJ),
+                                        jnp.asarray(cam.K), jnp.asarray(cam.dist), **kw),
+                    two_stage_forward_hires(det, rn, dv, rv, x, 16, return_filled=True,
+                                            **kw)[3])
+    else:
+        rn, rv = RefineNet(dtype=dtype), variables_from_npz(RN)
+        kw = dict(geom_board_xy=xy, geom_fill=fill)
+
+        def fn(dv, rv, x):
+            return (*full_forward(det, rn, dv, rv, x, 16, jnp.asarray(OBJ), jnp.asarray(K),
+                                  jnp.asarray(DIST), **kw),
+                    two_stage_forward(det, rn, dv, rv, x, 16, return_filled=True, **kw)[3])
+    return dict(zip(GEOM_KEYS, (np.asarray(o) for o in jax.jit(fn)(dv, rv, x))))
+
+
+def jax_int8(x: np.ndarray) -> dict:
+    out = load_pipeline(default_config(), DET_INT8, RN).detect(x)
+    return dict(zip(POSE_KEYS, (np.asarray(o) for o in out)))
+
+
 def jax_fused(x: np.ndarray) -> dict:
     det = Detector(n_ids=16)
     dv = variables_from_npz(DET)
@@ -179,12 +236,25 @@ def main():
     for tag, dtype in (("bf16", jnp.bfloat16), ("f32", jnp.float32)):
         for mode, refined in jax_offset(x, branch, dtype).items():
             out[f"refined_{mode}_{tag}"] = refined
+    out["geom_noise_g"], out["geom_noise_gs"] = geom_noise()
+    for tag, dtype in (("bf16", jnp.bfloat16), ("f32", jnp.float32)):
+        for name, fill in (("geom", False), ("geomfill", True)):
+            for prefix, frames_in, hires in (("", x, False), ("hires_", x_hi, True)):
+                for k, v in jax_geom(frames_in, dtype, fill, hires).items():
+                    out[f"{k}_{prefix}{name}_{tag}"] = v
+    for k, v in jax_int8(x).items():
+        out[f"{k}_int8"] = v
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **out)
     print(OUT, os.path.getsize(OUT), "bytes;",
           {k: int(out[f"valid_{k}"].sum())
-           for k in ("bf16", "f32", "fused", "top4", "hires_bf16", "hires_f32")},
+           for k in ("bf16", "f32", "fused", "top4", "hires_bf16", "hires_f32", "int8",
+                     "geom_bf16", "geomfill_bf16", "hires_geom_bf16",
+                     "hires_geomfill_bf16")},
           "valid slots;",
+          {k: int(out[f"filled_{k}"].sum())
+           for k in ("geomfill_bf16", "geomfill_f32", "hires_geomfill_bf16",
+                     "hires_geomfill_f32")}, "filled slots;",
           {k: (int(out[f"ok_{k}"].sum()), np.round(out[f"rms_{k}"], 2).tolist())
            for k in ("bf16", "f32", "hires_bf16", "hires_f32")}, "ok frames, rms")
 

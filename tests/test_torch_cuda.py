@@ -162,3 +162,126 @@ def test_pose_tail_graph_matches_eager(card, rng):
             assert torch.allclose(a, b, atol=1e-6)
         assert torch.allclose(got[1][want[0]], rvec[want[0]], atol=5e-3)
     assert sorted(pipe._pose_graphs) == [5, 32]
+
+
+INT8 = "artifacts/detector_devsynth_int8.npz"
+RN = "artifacts/refinenet_devsynth.npz"
+
+
+@pytest.mark.parametrize("hw", [(64, 80), (59, 73)])
+def test_int8_accumulators_on_the_card_equal_the_cpu_route(card, hw):
+    """The card's integer route (im2col + ``torch._int_mm``) against the
+    CPU's (int32 ``F.conv2d``), layer by layer and bit for bit, also on odd
+    sizes where the pools floor and the last chunk is short."""
+    from deepcharuco_tpu_torch.models.quant import QuantDetector, qvars_from_npz
+
+    frames = np.load(FRAMES)["frames"][:3, 60:60 + hw[0], 80:80 + hw[1]]
+    g = normalize_gray(torch.from_numpy(np.ascontiguousarray(frames)))
+    det = QuantDetector(qvars_from_npz(INT8), N_IDS).eval()
+    acc_cpu, acc_card = [], []
+    with torch.inference_mode():
+        out_cpu = det(g, accumulators=acc_cpu)
+        out_card = det.to(card)(g.to(card), accumulators=acc_card)
+    assert len(acc_card) == 12
+    for i, (a, b) in enumerate(zip(acc_card, acc_cpu)):
+        assert a.dtype == torch.int32 and torch.equal(a.cpu(), b), f"accumulator {i}"
+    for k in out_cpu:
+        assert torch.equal(out_card[k].cpu(), out_cpu[k])
+
+
+def test_int8_chunks_of_frames_agree_on_the_card(card, monkeypatch):
+    """One frame per chunk gives the logits and accumulators of the whole
+    batch; so does a single product against the CPU's convolution on a shape
+    that needs every padding (K = 9·64, N = 65)."""
+    from deepcharuco_tpu_torch.models import quant
+
+    frames = np.load(FRAMES)["frames"][:5, 40:104, 60:140]
+    g = normalize_gray(torch.from_numpy(np.ascontiguousarray(frames))).to(card)
+    det = quant.QuantDetector(quant.qvars_from_npz(INT8), N_IDS).eval().to(card)
+    whole_acc, one_acc = [], []
+    with torch.inference_mode():
+        whole = det(g, accumulators=whole_acc)
+        monkeypatch.setattr(quant, "_CHUNK_PIXELS", 1)
+        one = det(g, accumulators=one_acc)
+    assert all(torch.equal(whole[k], one[k]) for k in whole)
+    assert len(one_acc) == 12 and all(torch.equal(a, b) for a, b in zip(whole_acc, one_acc))
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.integers(-128, 128, (5, 12, 16, 64), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (65, 64, 3, 3), dtype=np.int8))
+    assert torch.equal(quant.qconv_acc(q.to(card), w.to(card), -128).cpu(),
+                       quant.qconv_acc(q, w, -128))
+
+
+@pytest.mark.parametrize("with_pose", [False, True])
+def test_servers_on_the_card_equal_the_synchronous_calls(card, rng, with_pose):
+    """Two batches in flight: every served result equals the synchronous
+    call's on the same batch, so no pose was read from the graph's buffers
+    after the next replay had overwritten them."""
+    from deepcharuco_tpu_torch.configs import default_config
+    from deepcharuco_tpu_torch.pipeline import Camera, InferencePipeline
+    from deepcharuco_tpu_torch.serving import (RESULT_KEYS, DeviceQueueServer, StreamServer,
+                                               VideoStream, pipelined_map)
+
+    fix = np.load(FRAMES)
+    pipe = InferencePipeline(default_config(), variables_from_npz(DET), variables_from_npz(RN),
+                             camera=Camera(K=fix["K"], dist=fix["dist"]), device=card)
+    steps, n = 6, 8
+    batches = [np.stack([np.roll(fix["frames"][(i + s) % 8], 3 * s + i, axis=1)
+                         for i in range(n)]) for s in range(steps)]
+    keys = RESULT_KEYS if with_pose else RESULT_KEYS[:3]
+    call = pipe.detect_with_pose if with_pose else pipe.detect
+    want = [call(b) for b in batches]
+    streams = lambda: [VideoStream(iter([b[i] for b in batches])) for i in range(n)]
+    served = list(StreamServer(pipe, streams(), with_pose=with_pose).run())
+    queued = list(DeviceQueueServer(pipe, streams(), chunk=1, with_pose=with_pose).run())
+    mapped = list(pipelined_map(lambda x: pipe.forward_device(x, with_pose), batches))
+    assert len(served) == len(queued) == len(mapped) == steps
+    for s in range(steps):
+        for j, key in enumerate(keys):
+            for got in (served[s], queued[s]):
+                rows = np.stack([got[i][key] for i in range(n)])
+                assert np.array_equal(rows, want[s][j], equal_nan=True), (s, key)
+            assert np.array_equal(mapped[s][j], want[s][j], equal_nan=True), (s, key)
+    if with_pose:
+        assert sum(int(w[3].sum()) for w in want) >= steps * n // 2
+
+
+def test_geom_decode_on_the_card_matches_the_cpu(card):
+    """The geometry decode and its fill on the same float32 logits: the same
+    masks and positions on the card as on the CPU."""
+    from deepcharuco_tpu_torch.board import inner_corner_object_points
+    from deepcharuco_tpu_torch.ops import fill_from_homography, pred_to_keypoints_geom
+
+    fix = np.load(FRAMES)
+    det = load_detector(DET, dtype=torch.float32, device="cpu")
+    xy = torch.from_numpy(inner_corner_object_points(5, 5, 0.01)[:, :2])
+    noise = tuple(torch.from_numpy(fix[k]) for k in ("geom_noise_g", "geom_noise_gs"))
+    with torch.inference_mode():
+        out = det(normalize_gray(torch.from_numpy(fix["frames"])))
+        res = {}
+        for dev in ("cpu", card):
+            kp, v = pred_to_keypoints_geom(out["loc"].to(dev), out["ids"].to(dev), N_IDS,
+                                           xy.to(dev), noise=tuple(t.to(dev) for t in noise))
+            res[str(dev)] = (kp, v, *fill_from_homography(kp, v, xy.to(dev), (240, 320)))
+    a, b = res["cpu"], res[str(card)]
+    assert torch.equal(a[1], b[1].cpu()) and int(a[1].sum()) >= 100      # reselected
+    assert torch.equal(a[3], b[3].cpu()) and torch.equal(a[4], b[4].cpu())  # valid | filled
+    assert int(a[4].sum()) >= 1
+    assert torch.allclose(a[0][a[1]], b[0].cpu()[a[1]], atol=1e-4)
+    assert torch.allclose(a[2][a[3]], b[2].cpu()[a[3]], atol=1e-4)
+
+
+def test_profiling_on_the_card(card, tmp_path):
+    from deepcharuco_tpu_torch import profiling
+
+    stats = profiling.device_memory_stats(card)
+    assert stats["bytes_limit"] >= stats["bytes_free"] > 0 and stats["bytes_in_use"] >= 0
+    timer = profiling.StageTimer(card)
+    x = torch.ones(2048, 2048, device=card)
+    with timer.stage("matmul"):
+        y = x @ x
+    assert timer.totals["matmul"] > 0 and float(y[0, 0]) == 2048.0
+    with profiling.trace(str(tmp_path), device=card) as prof:
+        x @ x
+    assert any(e.device_time_total > 0 for e in prof.key_averages())
+    assert (tmp_path / "trace.json").stat().st_size > 0

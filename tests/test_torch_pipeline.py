@@ -167,18 +167,40 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
                                     dict(det_quant="int8", camera=object()),
                                     dict(det_quant="int8")])
 def test_options_outside_the_slice_are_not_ported(kwargs):
-    """What is still open: the geometry decode and the int8 detector, in any
-    combination with what is ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferencePipeline(CFG, variables_from_npz(DET), device="cpu", **kwargs)
+    """These options were open until the geometry decode and the int8
+    detector were ported: none raises ``NotImplementedError`` any more. Each
+    combination now builds, or raises the JAX package's own guard."""
+    guards = {("geom_fill",): "geom_fill requires geom_decode=True",
+              ("decode_capacity", "geom_decode"): "exclusive",
+              ("geom_decode", "hires"): "hires tap needs RefineNet weights"}
+    guard = guards.get(tuple(sorted(kwargs)))
+    det_vars = variables_from_npz(DET)
+    if "det_quant" in kwargs:
+        from deepcharuco_tpu_torch.models.quant import qvars_from_npz
+        det_vars = qvars_from_npz("artifacts/detector_devsynth_int8.npz")
+        kwargs = {**kwargs, "camera": None}
+    if guard:
+        with pytest.raises(ValueError, match=guard):
+            InferencePipeline(CFG, det_vars, device="cpu", **kwargs)
+        return
+    pipe = InferencePipeline(CFG, det_vars, device="cpu", **kwargs)
+    kp, valid, refined = pipe.detect(np.zeros((1, 64, 64), np.uint8))
+    assert kp.shape == (1, 16, 2) and not valid.any()
 
 
 def test_functional_entry_points_refuse_the_geometry_decode(fix):
+    """They no longer refuse it: with ``geom_board_xy`` both run, and on a
+    frame without a board (an untrained detector finds no six consistent
+    corners) they give the parity decode. What is still refused is a
+    checkpoint format that is not ported."""
     det = Detector(16, torch.float32).eval()
     xy = OBJ[:, :2]
+    x = fix["frames"][:1]
+    want = two_stage_forward(det, None, x, 16, device="cpu")
     for fn, extra in ((two_stage_forward, ()), (full_forward, (OBJ, fix["K"], fix["dist"]))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(det, None, fix["frames"][:1], 16, *extra, geom_board_xy=xy, device="cpu")
+        got = fn(det, None, x, 16, *extra, geom_board_xy=xy, device="cpu")
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0][want[1]], want[0][want[1]])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_pipeline(CFG, "weights.ckpt", device="cpu")
 

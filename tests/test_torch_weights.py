@@ -154,5 +154,6 @@ def test_port_imports_no_cv2_at_module_level(rel):
 def test_the_static_checks_cover_the_new_modules():
     rels = _port_sources()
     for want in ("board.py", "pnp/__init__.py", "pnp/projection.py", "pnp/smallmath.py",
-                 "pnp/solve.py", "pnp/ransac.py", "pipeline.py"):
+                 "pnp/solve.py", "pnp/ransac.py", "pipeline.py", "ops/geom.py",
+                 "models/quant.py", "serving.py", "profiling.py"):
         assert os.path.join("deepcharuco_tpu_torch", *want.split("/")) in rels
