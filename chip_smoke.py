@@ -82,7 +82,24 @@ stopping at the first failure with a non-zero exit:
     kernels' launch counts on the served paths; the geometry decode served
     against synchronous; and the peak bytes of device memory per input pixel
     of served batches (both paths, with and without pose, at 240×320, and
-    480×640), which ``serving.TWO_STAGE_BYTES_PER_PIXEL`` must cover.
+    480×640), which ``serving.TWO_STAGE_BYTES_PER_PIXEL`` must cover;
+13. training: the fixture's stored JAX synthesis draws rendered on the card
+    (two detector batches, frame patches, RefineNet patches) against the
+    stored JAX renders (labels and visible masks equal; images, patches and
+    heatmaps within 1e-3 but for one-level low-light rounding flips on at
+    most 1% of the pixels, counted); three float32 Adam steps of the
+    detector and of RefineNet from the shipped weights on the stored batches,
+    TF32 off, against the stored JAX losses (1e-4 relative) and running
+    statistics (1e-3 of each layer's scale), then the same numbers with TF32
+    on; ``cli.train --device-synth`` for 40 dispatches of 4 steps at batch 32
+    on 240×320 frames (eval every 20, 2 batches): finite scalars, top-k
+    checkpoints, the decode kernel launched once per eval batch, a
+    checkpoint served by ``InferencePipeline``, a run resumed at the first
+    checkpoint within 35% of the uninterrupted run's val_loss;
+    ``cli.train_refinenet --device-synth --frame-patches`` for 8 dispatches;
+    and steps per second, the step alone, synthesis alone, peak memory (TF32
+    off and on), the step by device operation, the idle share, and B1's
+    launches in one eval batch counted by ``torch.profiler``.
 
 Its last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with the kernels' numbers, and ``{"ok": true, "device": {...}}``. Imports
@@ -1120,6 +1137,312 @@ def phase_streams(pipes, geom_pipes, fix, rng, dev):
     return out, launches
 
 
+SYNTH_TOL = 1e-3       # |Δ| of images, patches, heatmaps (normalized units)
+FLIP_SHARE = 0.01      # share of pixels allowed a one-level (1/255) low-light rounding flip
+STEP_REL = 1e-4        # losses against the stored JAX float32 ones, relative
+STATS_TOL = 1e-3       # running statistics, of each layer's largest value
+RESUME_REL = 0.35      # a resumed run's val_loss against the uninterrupted run's
+
+
+def fixture_synthesizer(name, cfg, dev):
+    from deepcharuco_tpu_torch.data import device_synth as P
+
+    if name == "det_base":
+        return P.DeviceSynthesizer(cfg, device=dev)
+    if name == "det_diet":
+        return P.DeviceSynthesizer(cfg, perspective_p=0.5, axis_snap_p=0.5, low_gain_p=0.5,
+                                   device=dev)
+    if name == "frame_patch":
+        return P.FramePatchSynthesizer(cfg, perspective_p=0.5, device=dev)
+    return P.DeviceRefineSynthesizer(cfg, device=dev)
+
+
+def phase_synthesis(cfg, fix, dev):
+    """The stored JAX draws rendered on the card against the stored JAX
+    renders; then the synthesisers' time per training batch."""
+    import torch
+
+    from deepcharuco_tpu_torch.data.device_synth import load_draws
+
+    out = {}
+    for name in ("det_base", "det_diet", "frame_patch", "refine"):
+        synth = fixture_synthesizer(name, cfg, dev)
+        draws = load_draws(fix, f"synth/{name}/draw", dev)
+        want = lambda k: torch.from_numpy(np.asarray(
+            fix[f"synth/{name}/out/{k}"], np.float32 if k == "images" else None))
+        if name.startswith("det"):
+            img, loc, ids, kpts, vis = (t.cpu() for t in synth.render_full(draws))
+            for k, t in (("loc", loc), ("ids", ids), ("visible", vis)):
+                require(torch.equal(t, want(k)), f"phase 13 synthesis [{name}]: {k} differs")
+            diff = (img - want("images")).abs()
+            flips = (diff - 1 / 255).abs() <= SYNTH_TOL
+            rest = torch.where(flips, 0.0, diff)
+            over = int((rest > SYNTH_TOL).sum())
+            out[name] = {"labels_equal": True, "pixels": diff.numel(), "flips": int(flips.sum()),
+                         "over_limit": over, "max_abs_err": float(rest.max()),
+                         "kpts_max_abs_err": float((kpts - want("kpts")).abs().max()),
+                         "visible": int(vis.sum())}
+            log(f"phase 13 synthesis [{name}] on the stored JAX draws: loc, ids, visible equal "
+                f"({int(vis.sum())} visible corners); images: max |Δ| {float(rest.max()):.2e} "
+                f"outside {int(flips.sum())} one-level low-light flips of {diff.numel()} pixels, "
+                f"{over} pixels over {SYNTH_TOL}; max |Δkpts| {out[name]['kpts_max_abs_err']:.2e}")
+            require(over == 0 and float(flips.float().mean()) <= FLIP_SHARE,
+                    f"phase 13 synthesis [{name}]: images disagree with JAX")
+        else:
+            got = synth.render(draws) if name == "refine" else synth.render(draws, 8)
+            errs = [float((g.cpu() - want(k)).abs().max()) for g, k in zip(got, ("patches",
+                                                                              "heatmaps"))]
+            out[name] = {"patches_max_abs_err": errs[0], "heatmaps_max_abs_err": errs[1]}
+            log(f"phase 13 synthesis [{name}] on the stored JAX draws: max |Δ| patches "
+                f"{errs[0]:.2e}, heatmaps {errs[1]:.2e}")
+            require(max(errs) <= SYNTH_TOL, f"phase 13 synthesis [{name}] disagrees with JAX")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ms = {}
+    for name, n in (("det_base", 32), ("det_diet", 32), ("frame_patch", 64), ("refine", 64)):
+        synth = fixture_synthesizer(name, cfg, dev)
+        ms[f"{name}@{n}"] = cuda_ms(lambda: synth.batch(gen, n), iters=10)
+    log("phase 13 synthesis alone, ms per training batch (draws + render, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    out["ms_per_batch"] = ms
+    return out
+
+
+def three_steps(kind, fix, dev):
+    """Three Adam steps from the shipped weights on the stored batch: the
+    losses per step and the running statistics after them, against the
+    stored JAX float32 values (largest relative loss error, largest
+    statistics error of each layer's scale)."""
+    import torch
+
+    from deepcharuco_tpu_torch import weights as W
+    from deepcharuco_tpu_torch.models import Detector, RefineNet
+    from deepcharuco_tpu_torch.train import (create_detector_state, create_refinenet_state,
+                                             make_detector_train_step,
+                                             make_refinenet_train_step, state_variables)
+
+    if kind == "det":
+        model = W.load_state(Detector(N_IDS, torch.float32),
+                             W.detector_state_dict(W.variables_from_npz(DET))).to(dev)
+        state, step = create_detector_state(model, 1e-4), make_detector_train_step()
+        cat = lambda k: np.concatenate([fix[f"synth/{n}/out/{k}"] for n in ("det_base",
+                                                                          "det_diet")])
+        batch = [torch.from_numpy(cat("images").astype(np.float32)),
+                 torch.from_numpy(cat("loc")), torch.from_numpy(cat("ids"))]
+        keys = ("loss", "loss_loc", "loss_ids")
+    else:
+        model = W.load_state(RefineNet(torch.float32),
+                             W.refinenet_state_dict(W.variables_from_npz(RN))).to(dev)
+        state, step = create_refinenet_state(model, 1e-4), make_refinenet_train_step()
+        batch = [torch.from_numpy(fix[f"synth/refine/out/{k}"]) for k in ("patches", "heatmaps")]
+        keys = ("loss",)
+    batch = [b.to(dev) for b in batch]
+    losses, rel = [], 0.0
+    for i in range(3):
+        state, aux = step(state, *batch)
+        losses.append({k: float(aux[k]) for k in keys})
+        for k in keys:
+            want = float(fix[f"train/{kind}/{k}"][i])
+            rel = max(rel, abs(losses[-1][k] - want) / abs(want))
+    stats = W.flatten_variables({"batch_stats": state_variables(state)["batch_stats"]})
+    stats_err = max(float(np.abs(v - fix[f"train/{kind}/{k}"]).max()
+                          / np.abs(fix[f"train/{kind}/{k}"]).max()) for k, v in stats.items())
+    return losses, rel, stats_err
+
+
+def phase_train_steps(fix, dev):
+    import torch
+
+    out = {}
+    for kind, name in (("det", "detector"), ("rn", "RefineNet")):
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            losses, rel, stats_err = three_steps(kind, fix, dev)
+            out[f"{name}, tf32={tf32}"] = {"losses": losses, "max_rel_loss_err": rel,
+                                           "max_stats_err": stats_err}
+            log(f"phase 13 {name} 3 Adam steps (lr 1e-4) from the shipped weights on the stored "
+                f"batch, TF32 {'on' if tf32 else 'off'}: losses "
+                f"{[round(l['loss'], 8) for l in losses]} against JAX f32 "
+                f"{[round(float(x), 8) for x in fix[f'train/{kind}/loss']]}, max relative error "
+                f"{rel:.2e}; running statistics within {stats_err:.2e} of each layer's scale")
+            if not tf32:
+                require(rel <= STEP_REL, f"phase 13 {name} steps: losses disagree with JAX")
+                require(stats_err <= STATS_TOL,
+                        f"phase 13 {name} steps: running statistics disagree with JAX")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return out
+
+
+def jsonl_rows(logdir):
+    with open(os.path.join(logdir, "scalars.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train_clis(cfg, fix, dev):
+    """Both trainers through their CLIs at full width (cuDNN's default TF32
+    convolutions, as a user runs them); the decode kernel's launches in the
+    detector trainer's eval; a checkpoint served; a resumed run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepcharuco_tpu_torch.cli import train as det_cli
+    from deepcharuco_tpu_torch.cli import train_refinenet as rn_cli
+    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
+    from deepcharuco_tpu_torch.pipeline import load_pipeline
+
+    torch.backends.cudnn.allow_tf32 = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        common = ["--device-synth", "--eval-every", "20", "--eval-batches", "2",
+                  "--fused-steps", "4", "--ckpt-dir", os.path.join(tmp, "ck")]
+        cuda_decode.launches = cuda_fused.launches = 0
+        t0 = time.perf_counter()
+        det_cli.main(common + ["--steps", "40", "--logdir", os.path.join(tmp, "tb")])
+        wall = time.perf_counter() - t0
+        launches = cuda_decode.launches
+        rows = jsonl_rows(os.path.join(tmp, "tb"))
+        with open(os.path.join(tmp, "ck", "index.json")) as f:
+            index = json.load(f)
+        log(f"phase 13 cli.train --device-synth --steps 40 --eval-every 20 --eval-batches 2 "
+            f"--fused-steps 4 (batch {cfg.bs_train}, {cfg.input_hw[0]}×{cfg.input_hw[1]}): "
+            f"{wall:.1f} s; "
+            + "; ".join(f"step {r['step']}: train_loss {r['train_loss']:.4f} val_loss "
+                        f"{r['val_loss']:.4f} match {r['val_match_ratio']:.3f} "
+                        f"{r['steps_per_sec']:.2f} dispatches/s" for r in rows)
+            + f"; checkpoints {sorted(index)}; decode kernel launches {launches}, fused "
+            f"{cuda_fused.launches}")
+        require([r["step"] for r in rows] == [20, 40], "cli.train logged the wrong steps")
+        require(all(np.isfinite(r[k]) for r in rows for k in r), "cli.train: non-finite scalars")
+        require(sorted(index) == ["step_0000080", "step_0000160"], "cli.train: checkpoints")
+        require(launches == 4 and cuda_fused.launches == 0,
+                f"cli.train eval launched the decode kernel {launches} times, expected 4")
+        pipe = load_pipeline(cfg, os.path.join(tmp, "ck", "step_0000160", "variables.npz"), RN,
+                             device=dev)
+        kp, v, r = pipe.detect(fix["frames"])
+        require(kp.shape == (8, N_IDS, 2) and np.isfinite(r).all(),
+                "a trained checkpoint does not serve in InferencePipeline")
+        log(f"phase 13 checkpoint step_0000160 served by InferencePipeline: "
+            f"{int(v.sum())} corners on the 8 fixture frames")
+        det_cli.main(common + ["--steps", "20", "--resume", "step_0000080", "--logdir",
+                               os.path.join(tmp, "tb_resumed")])
+        resumed = jsonl_rows(os.path.join(tmp, "tb_resumed"))[-1]
+        d = abs(resumed["val_loss"] - rows[-1]["val_loss"]) / rows[-1]["val_loss"]
+        log(f"phase 13 resumed at step_0000080 for 20 dispatches: val_loss "
+            f"{resumed['val_loss']:.4f} against {rows[-1]['val_loss']:.4f} uninterrupted "
+            f"(relative {d:.3f}; the resumed run trains on the feed's first batches again)")
+        require(d <= RESUME_REL, "a resumed run did not reach the uninterrupted run's val_loss")
+        t0 = time.perf_counter()
+        rn_cli.main(["--device-synth", "--frame-patches", "--steps", "8", "--eval-every", "4",
+                     "--eval-batches", "2", "--fused-steps", "2", "--init-npz", RN,
+                     "--logdir", os.path.join(tmp, "tb_rn"), "--ckpt-dir",
+                     os.path.join(tmp, "ck_rn")])
+        rn_rows = jsonl_rows(os.path.join(tmp, "tb_rn"))
+        rn_files = sorted(os.listdir(os.path.join(tmp, "ck_rn")))
+        log(f"phase 13 cli.train_refinenet --device-synth --frame-patches --steps 8 "
+            f"--fused-steps 2 (batch {cfg.bs_train_rn}): {time.perf_counter() - t0:.1f} s; "
+            + "; ".join(f"step {r['step']}: loss {r['train_refinenet_loss']:.5f} val "
+                        f"{r['val_refinenet_loss']:.5f}" for r in rn_rows)
+            + f"; {rn_files}")
+        require(len(rn_rows) == 2 and all(np.isfinite(r[k]) for r in rn_rows for k in r),
+                "cli.train_refinenet: scalars")
+        require(rn_files == ["index.json", "step_0000008", "step_0000016"],
+                "cli.train_refinenet: checkpoints")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.allow_tf32 = False
+    return {"det_rows": rows, "resumed_val_loss": resumed["val_loss"], "rn_rows": rn_rows,
+            "det_wall_s": wall}, launches
+
+
+def phase_train_measure(cfg, dev):
+    """Train steps per second at batch 32 (synthesis + step), the step alone,
+    peak memory, TF32 off and on; the step by device operation; B1's
+    launches in one eval batch, counted by the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepcharuco_tpu_torch.data import DeviceSynthesizer
+    from deepcharuco_tpu_torch.models import Detector
+    from deepcharuco_tpu_torch.parallel import synth_scan_program
+    from deepcharuco_tpu_torch.train import (create_detector_state, flax_init_,
+                                             make_detector_eval_step, make_detector_train_step)
+    from deepcharuco_tpu_torch.train.metrics import detector_metrics
+
+    bs = cfg.bs_train
+    synth = DeviceSynthesizer(cfg, device=dev)
+    state = create_detector_state(flax_init_(Detector(N_IDS, torch.float32)).to(dev))
+    step = make_detector_train_step()
+    program = synth_scan_program(step, lambda g: synth.batch(g, bs))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fixed = synth.batch(gen, bs)
+    out = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        for _ in range(3):
+            program(state, gen)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n = 20
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, aux = program(state, gen)
+        float(aux["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        step_ms = cuda_ms(lambda: step(state, *fixed), iters=10, warmup=2)
+        out[f"tf32={tf32}"] = {"steps_per_s": n / dt, "ms_per_step": 1e3 * dt / n,
+                               "step_alone_ms": step_ms, "peak_gib": peak}
+        log(f"phase 13 detector training at batch {bs}, 240×320, float32, TF32 "
+            f"{'on' if tf32 else 'off'}: {n / dt:.2f} steps/s ({1e3 * dt / n:.3f} ms per "
+            f"synthesis + step), the step alone on a fixed batch {step_ms:.3f} ms, peak "
+            f"{peak:.2f} GiB above the model at rest")
+    busy, span, n_ops = busy_share(lambda: [program(state, gen) for _ in range(5)])
+    out["tf32=True"].update({"busy_ms": busy, "span_ms": span, "device_ops_5_steps": n_ops})
+    log(f"phase 13 five synthesis + train steps (TF32 on) under torch.profiler: busy {busy:.3f} "
+        f"of {span:.3f} ms (idle share {1 - busy / span:.4f}), {n_ops} device operations")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        program(state, gen)
+        torch.cuda.synchronize()
+    by_op = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    total_us = sum(e.device_time_total for e in by_op)
+    out["by_op_ms"] = {e.key[:60]: e.device_time_total / 1e3 for e in by_op[:10]}
+    log(f"phase 13 one synthesis + train step by device operation ({total_us / 1e3:.3f} ms, "
+        "TF32 on): " + "; ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.2f} ms ×{e.count}"
+                                 for e in by_op[:10]))
+    eval_fn = make_detector_eval_step()
+    vi, vl, vd = synth.batch(torch.Generator(device=dev).manual_seed(777), 16)
+
+    def one_eval():
+        aux_v, o = eval_fn(state, vi, vl, vd)
+        return detector_metrics(o["loc"], o["ids"], vl, vd, N_IDS)
+
+    one_eval()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_eval()
+        torch.cuda.synchronize()
+    n_b1 = sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "decode_kernel" in e.name)
+    eval_ms = cuda_ms(one_eval, iters=5, warmup=1)
+    log(f"phase 13 one eval batch of 16 (loss + detector_metrics): {eval_ms:.3f} ms; the "
+        f"profiler sees {n_b1} launch(es) of B1 (decode_kernel)")
+    require(n_b1 == 1, f"the eval batch launched B1 {n_b1} times in the profile, expected 1")
+    out["eval_ms"] = eval_ms
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return out
+
+
+def phase_train(cfg, fix, dev):
+    out = {"synthesis": phase_synthesis(cfg, fix, dev), "steps": phase_train_steps(fix, dev)}
+    out["clis"], launches = phase_train_clis(cfg, fix, dev)
+    out["measure"] = phase_train_measure(cfg, dev)
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1168,13 +1491,15 @@ def main() -> int:
     geom, geom_pipes = phase_geom(cfg, pipes, fix, rng, dev)
     int8, int8_launches = phase_int8(cfg, pipes, fix, rng, dev)
     streams, stream_launches = phase_streams(pipes, geom_pipes, fix, rng, dev)
+    train, train_launches = phase_train(cfg, fix, dev)
     for i, row in enumerate(rows):
         row["launches_pose_path"] = pose_launches[row["name"]]
         row["launches_int8_path"] = int8_launches if row["name"] == "decode" else 0
         row["launches_served_paths"] = sum(v[i] for v in stream_launches.values())
+        row["launches_train_eval"] = train_launches if row["name"] == "decode" else 0
     log(json.dumps({"serve": serve, "fused_mismatch": fused_rates, "yardsticks": yard,
                     "build_s": build_s, "pose": pose, "geom": geom, "int8": int8,
-                    "streams": streams}))
+                    "streams": streams, "train": train}))
     log(smi())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

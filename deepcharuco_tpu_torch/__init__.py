@@ -1,7 +1,8 @@
 """deepcharuco_tpu_torch — the PyTorch/CUDA port of deepcharuco_tpu.
 
 Runs the Deep ChArUco inference pipeline (frames → corners → sub-pixel
-corners → board pose) on an NVIDIA H100, with the JAX package's two Pallas kernels
+corners → board pose) and on-card training on an NVIDIA H100, with the JAX
+package's two Pallas kernels
 written by hand in CUDA C++ for ``sm_90a``. The JAX package is the
 reference; the port imports nothing of it.
 
@@ -17,6 +18,11 @@ Layout
   small linear algebra, DLT + Levenberg–Marquardt, RANSAC)
 - :mod:`deepcharuco_tpu_torch.pipeline` — ``two_stage_forward[_hires]``,
   ``full_forward[_hires]``, ``Camera``, ``InferencePipeline``, ``load_pipeline``
+- :mod:`deepcharuco_tpu_torch.data`     — on-card synthesis (``device_synth``)
+- :mod:`deepcharuco_tpu_torch.train`    — steps, losses, metrics, checkpoints,
+  logging; :mod:`deepcharuco_tpu_torch.parallel` — ``synth_scan_program``
+- :mod:`deepcharuco_tpu_torch.cli`      — ``train``, ``train_refinenet``
+- ``assets/board_renders.npz`` — the board's renders, for the synthesis
 - ``csrc/`` — CUDA sources, built on first use by ``_build``
 
 Every entry point runs on the card unless the caller passes

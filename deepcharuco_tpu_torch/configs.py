@@ -83,3 +83,11 @@ def default_config(**overrides) -> Config:
     )
     base.update(overrides)
     return Config(**base)
+
+
+def scaled_config(cfg: Config, factor: int = 2) -> Config:
+    """The same board and config with ``input_size`` scaled ``factor``×: the
+    hi-res frame view that ``--frame-scale`` synthesises at (the board's
+    geometry is physical and unchanged; its render gains detail)."""
+    return dataclasses.replace(cfg, input_size=(cfg.input_size[0] * factor,
+                                                cfg.input_size[1] * factor))

@@ -13,7 +13,8 @@ weights.
 ``offset_head=True`` adds the offset-regression branch on the 8×8
 bottleneck (``convOa`` → pool → ``denseOa`` → ReLU → ``denseOb``): the
 corner's (dx, dy) in image px from the patch center. The forward pass then
-returns ``{"heat", "offset"}``.
+returns ``{"heat", "offset"}``. ``train=True`` runs every BatchNorm on batch
+statistics and updates the running ones (``models.detector.ConvBNRelu``).
 """
 
 from __future__ import annotations
@@ -64,20 +65,20 @@ class RefineNet(nn.Module):
                                  align_corners=False)
         return F.interpolate(x, scale_factor=2, mode="nearest")
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = to_nchw(x.to(self.dtype))
-        x = self.conv2b(self.conv2a(self.conv1b(self.conv1a(x))))
+        x = self.conv2b(self.conv2a(self.conv1b(self.conv1a(x, train), train), train), train)
         x = pool(x)                                  # 16 → 8, or 24 → 12
         if self.patch_size == 32:
-            x = self.conv2d(self.conv2c(x))          # 12 → 10 → 8
-        bottleneck = self.conv3b(self.conv3a(x))     # (N, c3, 8, 8)
+            x = self.conv2d(self.conv2c(x, train), train)    # 12 → 10 → 8
+        bottleneck = self.conv3b(self.conv3a(x, train), train)   # (N, c3, 8, 8)
         x = self._up(bottleneck)
-        x = self._up(self.conv4b(self.conv4a(x)))
-        x = self._up(self.conv5b(self.conv5a(x)))
-        heat = to_nhwc(self.convPb(self.convPa(x)).float())
+        x = self._up(self.conv4b(self.conv4a(x, train), train))
+        x = self._up(self.conv5b(self.conv5a(x, train), train))
+        heat = to_nhwc(self.convPb(self.convPa(x, train)).float())
         if not self.offset_head:
             return heat
-        o = pool(self.convOa(bottleneck))            # (N, 128, 4, 4)
+        o = pool(self.convOa(bottleneck, train))     # (N, 128, 4, 4)
         # denseOa's 2048 inputs are ordered (row, col, channel), as the
         # JAX module flattens its NHWC map
         o = to_nhwc(o).flatten(1)

@@ -422,6 +422,33 @@ def is_quantized_npz(ckpt: Optional[str]) -> bool:
         return False
 
 
+def merge_variables(dst, src, _path=""):
+    """Overlay ``src`` leaves onto ``dst`` where the tree path exists and the
+    shape matches; leaves unique to either side stay as in ``dst``. Returns
+    (merged, loaded_paths, skipped_paths): how a superset network (the 32-px
+    RefineNet, the offset branch) warm-starts from a subset's weights."""
+    loaded, skipped = [], []
+    if isinstance(dst, dict) and isinstance(src, dict):
+        merged = {}
+        for k, v in dst.items():
+            if k in src:
+                m, lo, sk = merge_variables(v, src[k], f"{_path}/{k}")
+                merged[k] = m
+                loaded += lo
+                skipped += sk
+            else:
+                merged[k] = v
+                skipped.append(f"{_path}/{k} (absent in source)")
+        for k in src:
+            if k not in dst:
+                skipped.append(f"{_path}/{k} (absent in target)")
+        return merged, loaded, skipped
+    if getattr(dst, "shape", None) == getattr(src, "shape", ()):
+        return src, [_path], []
+    return dst, [], [f"{_path} (shape {getattr(src, 'shape', '?')} vs "
+                     f"{getattr(dst, 'shape', '?')})"]
+
+
 def _load_variables(ckpt: Optional[str], kind: str, n_ids: int = 16):
     """JAX-layout variables from an ``.npz`` file, or seeded random ones."""
     if ckpt is None:

@@ -69,6 +69,13 @@ def flatten_variables(variables: Dict, prefix: str = "") -> Dict[str, np.ndarray
     return flat
 
 
+def variables_to_npz(path: str, variables: Dict) -> None:
+    """Write a variable tree in the shipped format: a compressed ``.npz``
+    whose keys are the '/'-joined paths (the inverse of
+    :func:`variables_from_npz`; the JAX package's ``variables_to_npz``)."""
+    np.savez_compressed(path, **flatten_variables(variables))
+
+
 def _state_dict(variables: Dict, blocks, optional=()) -> Dict[str, np.ndarray]:
     params = variables["params"]
     stats = variables.get("batch_stats", {})

@@ -40,7 +40,33 @@ frames:
   2 on ``frames_hi`` with the same options (32-px RefineNet, soft decode);
 - ``{keypoints,valid,refined}_int8``: ``load_pipeline`` on the shipped int8
   detector (``artifacts/detector_devsynth_int8.npz``) with the bf16 24-px
-  RefineNet, ``detect`` on the frames.
+  RefineNet, ``detect`` on the frames;
+- ``synth/<name>/draw/...``: the draws of four synthesis batches, in the
+  port's layout (``tests/_jax_synth_draws.py``; '/'-joined paths), and
+  ``synth/<name>/out/...`` what the JAX synthesiser renders from them:
+  ``det_base`` (``DeviceSynthesizer``, ``PRNGKey(31)``, 4 samples; images,
+  ``loc``, ``ids``, ``kpts``, ``visible``), ``det_diet`` (the same with
+  ``perspective_p``, ``axis_snap_p`` and ``low_gain_p`` at 0.5,
+  ``PRNGKey(33)``: each of the three on in two of the four samples),
+  ``frame_patch`` (``FramePatchSynthesizer`` with ``perspective_p=0.5``,
+  ``PRNGKey(37)``, 8 patches from one frame; patches, heatmaps) and ``refine`` (``DeviceRefineSynthesizer``,
+  ``PRNGKey(34)``, 8 patches). To halve the file, every normal field is
+  drawn rounded to float16, in the stored draws and in the JAX render alike
+  (``jax.random.normal`` is wrapped while these are made), fields a sample
+  does not use (noise switched off, no low gain) are stored as zeros, and
+  the images are stored as float16;
+- ``train/det/...``: three float32 Adam steps (``optax.adam(1e-4)``,
+  ``make_detector_train_step``) from the shipped detector weights on the 8
+  synthesized frames of ``det_base`` and ``det_diet`` (their stored float16
+  images and label maps): ``loss``, ``loss_loc``, ``loss_ids`` per step and
+  the running statistics after the third (``batch_stats/...``);
+  ``train/rn/...``: the same for the shipped 24-px RefineNet
+  (``optax.adam(1e-4)``) on the ``refine`` patches and heatmaps. The
+  learning rate is kept small because the shipped weights are close to a
+  minimum: at 5e-3 the second step's loss already differs by 4e-4 between
+  two float32 runs and from float64 (Adam steps every parameter by about
+  the learning rate whatever its gradient, so the gradients' rounding
+  decides the next loss).
 
 Run from the repository root: ``python scripts/make_torch_port_fixture.py``.
 The file is regenerated only by this script.
@@ -62,7 +88,8 @@ import numpy as np  # noqa: E402
 
 from deepcharuco_tpu.board import inner_corner_object_points  # noqa: E402
 from deepcharuco_tpu.configs import default_config, scaled_config  # noqa: E402
-from deepcharuco_tpu.data.device_synth import DeviceSynthesizer  # noqa: E402
+from deepcharuco_tpu.data.device_synth import (DeviceRefineSynthesizer,  # noqa: E402
+                                               DeviceSynthesizer, FramePatchSynthesizer)
 from deepcharuco_tpu.models import Detector, RefineNet  # noqa: E402
 from deepcharuco_tpu.ops import normalize_gray  # noqa: E402
 from deepcharuco_tpu.ops.pallas_fused import (fold_head_params,  # noqa: E402
@@ -70,6 +97,10 @@ from deepcharuco_tpu.ops.pallas_fused import (fold_head_params,  # noqa: E402
 from deepcharuco_tpu.pipeline import (Camera, full_forward, full_forward_hires,  # noqa: E402
                                       load_pipeline, two_stage_forward,
                                       two_stage_forward_hires, variables_from_npz)
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "tests"))
+import _jax_synth_draws  # noqa: E402
 
 OUT = os.path.join("tests", "data", "torch_port_frames.npz")
 DET = "artifacts/detector_devsynth.npz"
@@ -220,6 +251,87 @@ def jax_fused(x: np.ndarray) -> dict:
     return {"keypoints": np.asarray(kp), "valid": np.asarray(valid)}
 
 
+def _flat(tree, prefix):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}"
+        out.update(_flat(v, key) if isinstance(v, dict) else {key: np.asarray(v)})
+    return out
+
+
+def synth_batches() -> dict:
+    """The synthesis draws and JAX renders (``synth/...``), the normal
+    fields rounded to float16 throughout."""
+    normal = jax.random.normal
+
+    def normal16(*a, **kw):
+        return normal(*a, **kw).astype(jnp.float16).astype(jnp.float32)
+
+    cfg = default_config()
+    batches = {
+        "det_base": (DeviceSynthesizer(cfg), 31, 4),
+        "det_diet": (DeviceSynthesizer(cfg, perspective_p=0.5, axis_snap_p=0.5,
+                                       low_gain_p=0.5), 33, 4),
+        "frame_patch": (FramePatchSynthesizer(cfg, perspective_p=0.5), 37, 8),
+        "refine": (DeviceRefineSynthesizer(cfg), 34, 8),
+    }
+    out = {}
+    jax.random.normal = normal16
+    try:
+        for name, (synth, seed, n) in batches.items():
+            key = jax.random.PRNGKey(seed)
+            d = _jax_synth_draws.draws(synth, key, n)
+            if name.startswith("det"):
+                res = jax.vmap(synth._sample_full)(jax.random.split(key, n))
+                keys = ("images", "loc", "ids", "kpts", "visible")
+            else:
+                res = synth.batch(key, n)
+                keys = ("patches", "heatmaps")
+            res = dict(zip(keys, (np.asarray(r) for r in res)))
+            if "images" in res:
+                res["images"] = res["images"].astype(np.float16)
+            photo = d["frame"]["photo"] if name == "frame_patch" else d["photo"]
+            photo["noise"] = photo["noise"] * photo["noise_on"][:, None, None]
+            if "dark_noise" in photo:
+                photo["dark_noise"] = photo["dark_noise"] * photo["gain_on"][:, None, None]
+            flat = _flat(d, f"synth/{name}/draw")
+            for k, v in flat.items():
+                if v.dtype == np.float32 and v.ndim == 3:      # the (B, H, W) normal fields
+                    flat[k] = v.astype(np.float16)
+            out.update(flat)
+            out.update(_flat(res, f"synth/{name}/out"))
+    finally:
+        jax.random.normal = normal
+    return out
+
+
+def train_steps(images, a, b, model, variables, lr, loss_keys) -> dict:
+    """Three float32 Adam steps on one batch: each step's losses and the
+    running statistics after the third."""
+    import optax
+
+    from deepcharuco_tpu.train import (create_detector_state, create_refinenet_state,
+                                       make_detector_train_step, make_refinenet_train_step)
+
+    tx = optax.adam(lr)
+    if isinstance(model, Detector):
+        _, state = create_detector_state(model, jax.random.PRNGKey(0), tx=tx)
+        step = jax.jit(make_detector_train_step(model, tx))
+    else:
+        _, state = create_refinenet_state(model, jax.random.PRNGKey(0), tx=tx)
+        step = jax.jit(make_refinenet_train_step(model, tx))
+    state = state.replace(params=variables["params"], batch_stats=variables["batch_stats"],
+                          opt_state=tx.init(variables["params"]))
+    losses = {k: [] for k in loss_keys}
+    for _ in range(3):
+        state, aux = step(state, images, a, b) if b is not None else step(state, images, a)
+        for k in loss_keys:
+            losses[k].append(float(aux[k]))
+    out = {k: np.asarray(v, np.float32) for k, v in losses.items()}
+    out.update(_flat(jax.tree.map(np.asarray, state.batch_stats), "batch_stats"))
+    return out
+
+
 def main():
     x, x_hi = frames(), frames_hi()
     out = {"frames": x, "frames_hi": x_hi, "K": K, "K_hi": K_HI, "dist": DIST}
@@ -244,6 +356,17 @@ def main():
                     out[f"{k}_{prefix}{name}_{tag}"] = v
     for k, v in jax_int8(x).items():
         out[f"{k}_int8"] = v
+    out.update(synth_batches())
+    batch = [np.concatenate([out[f"synth/{n}/out/{k}"] for n in ("det_base", "det_diet")])
+             for k in ("images", "loc", "ids")]
+    det = train_steps(jnp.asarray(batch[0].astype(np.float32)), jnp.asarray(batch[1]),
+                      jnp.asarray(batch[2]), Detector(n_ids=16, dtype=jnp.float32),
+                      variables_from_npz(DET), 1e-4, ("loss", "loss_loc", "loss_ids"))
+    out.update(_flat(det, "train/det"))
+    rn = train_steps(jnp.asarray(out["synth/refine/out/patches"]),
+                     jnp.asarray(out["synth/refine/out/heatmaps"]), None,
+                     RefineNet(dtype=jnp.float32), variables_from_npz(RN), 1e-4, ("loss",))
+    out.update(_flat(rn, "train/rn"))
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **out)
     print(OUT, os.path.getsize(OUT), "bytes;",
@@ -256,7 +379,8 @@ def main():
            for k in ("geomfill_bf16", "geomfill_f32", "hires_geomfill_bf16",
                      "hires_geomfill_f32")}, "filled slots;",
           {k: (int(out[f"ok_{k}"].sum()), np.round(out[f"rms_{k}"], 2).tolist())
-           for k in ("bf16", "f32", "hires_bf16", "hires_f32")}, "ok frames, rms")
+           for k in ("bf16", "f32", "hires_bf16", "hires_f32")}, "ok frames, rms;",
+          "train losses", out["train/det/loss"].tolist(), out["train/rn/loss"].tolist())
 
 
 if __name__ == "__main__":

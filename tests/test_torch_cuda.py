@@ -6,6 +6,8 @@ CUDA toolkit but no JAX (``tests/conftest.py`` imports JAX):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -285,3 +287,82 @@ def test_profiling_on_the_card(card, tmp_path):
         x @ x
     assert any(e.device_time_total > 0 for e in prof.key_averages())
     assert (tmp_path / "trace.json").stat().st_size > 0
+
+
+def _move(d, dev):
+    return {k: _move(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in d.items()}
+
+
+def test_synthesis_on_the_card_renders_as_on_the_cpu(card):
+    """Draws made on the card, rendered there and on the CPU: the label maps
+    and the visible mask equal, the images within 1e-3 but for one-level
+    flips of the low-light rounding on at most 1% of the pixels."""
+    from deepcharuco_tpu_torch.configs import default_config
+    from deepcharuco_tpu_torch.data import device_synth as P
+
+    kw = dict(perspective_p=0.5, axis_snap_p=0.5, low_gain_p=0.5)
+    on_card = P.DeviceSynthesizer(default_config(), device=card, **kw)
+    on_cpu = P.DeviceSynthesizer(default_config(), device="cpu", **kw)
+    d = on_card.draw(torch.Generator(device=card).manual_seed(0), 16)
+    got = [t.cpu() for t in on_card.render_full(d)]
+    want = on_cpu.render_full(_move(d, "cpu"))
+    for i in (1, 2, 4):
+        assert torch.equal(got[i], want[i]), i
+    diff = (got[0] - want[0]).abs()
+    flips = (diff - 1 / 255).abs() <= 1e-3
+    assert float(flips.float().mean()) <= 0.01
+    assert float(torch.where(flips, 0.0, diff).max()) <= 1e-3
+    fp = P.FramePatchSynthesizer(default_config(), device=card)
+    p, h = fp.batch(torch.Generator(device=card).manual_seed(1), 64)
+    assert p.shape == (64, 24, 24, 1) and h.shape == (64, 64, 64, 1) and p.is_cuda
+
+
+def test_train_steps_on_the_card_follow_the_cpu(card, rng):
+    """Three float32 Adam steps (TF32 off) on the card and on the CPU from
+    the shipped detector weights: the losses within 1e-4 relative."""
+    from deepcharuco_tpu_torch.models import Detector
+    from deepcharuco_tpu_torch.train import create_detector_state, make_detector_train_step
+    from deepcharuco_tpu_torch.weights import detector_state_dict, load_state
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sd = detector_state_dict(variables_from_npz(DET))
+        images = torch.from_numpy(rng.normal(scale=0.3, size=(4, 64, 96, 1)).astype(np.float32))
+        loc = torch.from_numpy(rng.integers(0, 65, size=(4, 8, 12)))
+        ids = torch.from_numpy(rng.integers(0, 17, size=(4, 8, 12)))
+        losses = {}
+        for dev in ("cpu", card):
+            state = create_detector_state(load_state(Detector(N_IDS, torch.float32), sd).to(dev))
+            step = make_detector_train_step(conf_weight=0.5, conf_topk=2)
+            losses[str(dev)] = [float(step(state, images.to(dev), loc.to(dev), ids.to(dev))[1]["loss"])
+                                for _ in range(3)]
+        for a, b in zip(losses["cpu"], losses[str(card)]):
+            assert abs(a - b) <= 1e-4 * abs(a), losses
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_detector_metrics_on_the_card_launch_the_decode_kernel(card, rng):
+    from deepcharuco_tpu_torch.train.metrics import detector_metrics
+
+    loc_hat = rng.normal(size=(8, 30, 40, 65)).astype(np.float32)
+    ids_hat = (np.round(rng.normal(size=(8, 30, 40, N_IDS + 1)) * 2) / 2).astype(np.float32)
+    loc_t = rng.integers(0, 65, size=(8, 30, 40)).astype(np.int32)
+    ids_t = rng.integers(0, N_IDS + 1, size=(8, 30, 40)).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (loc_hat, ids_hat, loc_t, ids_t)]
+    before = cuda_decode.launches
+    got = detector_metrics(*(a.to(card) for a in args), N_IDS)
+    assert cuda_decode.launches == before + 1
+    want = detector_metrics(*args, N_IDS)
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-6), k
+
+
+def test_train_cli_on_the_card(card, tmp_path):
+    from deepcharuco_tpu_torch.cli import train as det_cli
+
+    det_cli.main(["--device-synth", "--steps", "2", "--eval-every", "2",
+                  "--eval-batches", "1", "--batch-size", "4", "--logdir", str(tmp_path / "tb"),
+                  "--ckpt-dir", str(tmp_path / "ck")])
+    assert os.path.exists(tmp_path / "ck" / "step_0000002" / "variables.npz")

@@ -155,5 +155,9 @@ def test_the_static_checks_cover_the_new_modules():
     rels = _port_sources()
     for want in ("board.py", "pnp/__init__.py", "pnp/projection.py", "pnp/smallmath.py",
                  "pnp/solve.py", "pnp/ransac.py", "pipeline.py", "ops/geom.py",
-                 "models/quant.py", "serving.py", "profiling.py"):
+                 "models/quant.py", "serving.py", "profiling.py", "data/__init__.py",
+                 "data/device_synth.py", "train/__init__.py", "train/steps.py",
+                 "train/metrics.py", "train/checkpoints.py", "train/logging.py",
+                 "parallel/__init__.py", "cli/__init__.py", "cli/train.py",
+                 "cli/train_refinenet.py"):
         assert os.path.join("deepcharuco_tpu_torch", *want.split("/")) in rels
