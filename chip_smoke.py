@@ -99,7 +99,23 @@ stopping at the first failure with a non-zero exit:
     ``cli.train_refinenet --device-synth --frame-patches`` for 8 dispatches;
     and steps per second, the step alone, synthesis alone, peak memory (TF32
     off and on), the step by device operation, the idle share, and B1's
-    launches in one eval batch counted by ``torch.profiler``.
+    launches in one eval batch counted by ``torch.profiler``;
+14. the entry points users run, each kernel's launches counted per entry
+    point: ``load_pipeline`` from Lightning ``.ckpt`` files that the port
+    wrote from the shipped weights and from a trainer checkpoint directory
+    (``detect`` bit-equal to the ``.npz``-loaded pipeline); ``cli.benchmark``'s
+    core at batch 256 on 8 unique resident batches (two-stage,
+    ``--with-pose``, ``--fused-head`` with agreement ≥ 0.98 and B2 launched,
+    ``--breakdown``, 256 streams, 32 streams in chunks of 8, and the hi-res
+    tap with pose at batch 64), each beside phase 5's, 9's or 12's figure
+    for the same path; ``python -m deepcharuco_tpu_torch.bench`` in its own
+    process (one JSON line, a FLOP rate under the card's peak); the cores of
+    ``cli.infer`` (rows equal to ``detect``'s, phase 4's limits against
+    JAX), ``cli.eval`` (float32 on the stored JAX renders against JAX's
+    eval: ``n_target`` equal, counts within 2, mean errors within 0.01 px)
+    and ``cli.pose_video`` (equal to ``detect_with_pose``; ``--smooth``
+    equal to ``PoseFilter``; ``--ransac`` against the port's RANSAC on the
+    CPU on the same subsets, within phase 7's limits).
 
 Its last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with the kernels' numbers, and ``{"ok": true, "device": {...}}``. Imports
@@ -1443,6 +1459,252 @@ def phase_train(cfg, fix, dev):
     return out, launches
 
 
+class Launches:
+    """The kernels' launch counts over one entry point's run: set to 0 on
+    entry, read on exit, added to ``total``."""
+
+    def __init__(self, total: dict, runs: dict, name: str):
+        self.total, self.runs, self.name = total, runs, name
+
+    def __enter__(self):
+        from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
+
+        cuda_decode.launches = cuda_fused.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
+
+        self.counts = (cuda_decode.launches, cuda_fused.launches)
+        self.runs[self.name] = self.counts
+        self.total["decode"] += self.counts[0]
+        self.total["fused_head_decode"] += self.counts[1]
+        return False
+
+
+BENCH_UNIQUE = 8        # unique resident batches per benchmark run
+
+
+def phase_checkpoint_forms(cfg, fix, dev):
+    """``load_pipeline`` from a Lightning ``.ckpt`` that the port wrote from
+    the shipped weights and from a trainer checkpoint directory: ``detect``
+    bit-equal to the ``.npz``-loaded pipeline."""
+    import shutil
+    import tempfile
+
+    from deepcharuco_tpu_torch.compat import save_lightning_checkpoint
+    from deepcharuco_tpu_torch.pipeline import load_pipeline
+    from deepcharuco_tpu_torch.train.checkpoints import CheckpointManager
+    from deepcharuco_tpu_torch.weights import variables_from_npz
+
+    want = load_pipeline(cfg, DET, RN, device=dev).detect(fix["frames"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        det_ckpt, rn_ckpt = os.path.join(tmp, "deepc.ckpt"), os.path.join(tmp, "refinenet.ckpt")
+        save_lightning_checkpoint(det_ckpt, variables_from_npz(DET), "detector")
+        save_lightning_checkpoint(rn_ckpt, variables_from_npz(RN), "refinenet")
+        step_dir = CheckpointManager(os.path.join(tmp, "ck")).save(
+            "step_0000001", variables_from_npz(DET), metric=0.0)
+        for tag, det, rn in (("Lightning .ckpt files", det_ckpt, rn_ckpt),
+                             ("a CheckpointManager directory", step_dir, RN)):
+            got = load_pipeline(cfg, det, rn, device=dev).detect(fix["frames"])
+            same = all(np.array_equal(a, b) for a, b in zip(got, want))
+            log(f"phase 14 load_pipeline from {tag}: detect on the fixture frames bit-equal "
+                f"to the .npz-loaded pipeline: {same}")
+            require(same, f"load_pipeline from {tag} differs from the .npz weights")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_benchmark_cli(dev, yard, total, runs):
+    """``cli.benchmark``'s core at batch 256 (64 under the tap), every path
+    of its flags, each beside the earlier phase that times the same path."""
+    import torch
+
+    from deepcharuco_tpu_torch.cli import benchmark as bench_cli
+
+    base = ["--deepc", DET, "--refinenet", RN, "--batch", str(N),
+            "--iters", str(BENCH_UNIQUE), "--warmup", "2"]
+    cases = [("two-stage", [], "detect"),
+             ("--with-pose", ["--with-pose"], "pose"),
+             ("--fused-head", ["--fused-head"], None),
+             ("--breakdown", ["--breakdown"], "detect"),
+             ("--multi-stream 256 --frames-per-stream 8",
+              ["--multi-stream", str(N), "--frames-per-stream", "8"], "StreamServer"),
+             ("--multi-stream 32 --stream-chunk 8",
+              ["--multi-stream", "32", "--stream-chunk", "8"], "DeviceQueueServer"),
+             ("--hires 2 --with-pose --rn-patch-size 32 --rn-decode soft --batch 64",
+              ["--hires", "2", "--with-pose", "--rn-patch-size", "32", "--rn-decode", "soft",
+               "--batch", "64", "--refinenet", RN32], "hires")]
+    out = {}
+    for name, flags, yard_key in cases:
+        args = bench_cli.build_argparser().parse_args(base + flags)
+        t0 = time.perf_counter()
+        with Launches(total, runs, f"cli.benchmark {name}") as cnt:
+            res = bench_cli.run(args)
+        torch.cuda.empty_cache()
+        res["wall_s"] = time.perf_counter() - t0
+        out[name] = res
+        beside = ""
+        if yard_key is not None:
+            yard_name, yard_value = yard[yard_key]
+            mine = res["fps"] if "fps" in yard_name else res["ms_per_batch"]
+            beside = f"; {yard_name} {yard_value:.3f} → this/that {mine / yard_value:.3f}"
+        log(f"phase 14 cli.benchmark {name}: " + " | ".join(res["lines"])
+            + f"{beside}; launches decode/fused {cnt.counts}; {res['wall_s']:.1f} s")
+        require(cnt.counts[0] >= 1, f"cli.benchmark {name} did not launch the decode kernel")
+        require(np.isfinite(res["fps"]) and res["fps"] > 0, f"cli.benchmark {name}: fps")
+        if name == "--fused-head":
+            require(cnt.counts[1] >= 1, "cli.benchmark --fused-head did not launch B2")
+            require(res["agree_valid"] >= 0.98,
+                    f"--fused-head agreement {res['agree_valid']:.4f} < 0.98")
+    return out
+
+
+def phase_bench_module():
+    """``python -m deepcharuco_tpu_torch.bench`` in its own process: one JSON
+    line with the protocol's keys, and a FLOP rate under the card's peak."""
+    import re
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "deepcharuco_tpu_torch.bench"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600,
+                       env={k: v for k, v in os.environ.items() if not k.startswith("BENCH_")})
+    wall = time.perf_counter() - t0
+    for line in r.stderr.strip().splitlines():
+        log(f"phase 14 bench (stderr): {line}")
+    require(r.returncode == 0, f"python -m deepcharuco_tpu_torch.bench exited {r.returncode}")
+    lines = r.stdout.strip().splitlines()
+    require(len(lines) == 1, f"bench printed {len(lines)} lines on stdout, expected 1")
+    rec = json.loads(lines[0])
+    log(f"phase 14 bench line: {lines[0]} ({wall:.1f} s)")
+    require(sorted(rec) == ["metric", "unit", "value", "vs_baseline"] and rec["value"] > 0,
+            f"bench's line has the wrong keys or value: {rec}")
+    m = re.search(r"([\d.]+) GFLOP/frame ⇒ ([\d.]+) TFLOP/s", r.stderr)
+    require(m is not None, "bench printed no FLOP figure")
+    require(float(m.group(2)) * 1e12 < PEAK_BF16,
+            f"bench's implied {m.group(2)} TFLOP/s exceeds the card's peak")
+    return {"line": rec, "gflop_per_frame": float(m.group(1)),
+            "tflops": float(m.group(2)), "wall_s": wall}
+
+
+def phase_infer_eval_pose(cfg, fix, dev, total, runs):
+    """The cores of ``cli.infer``, ``cli.eval`` and ``cli.pose_video`` on the
+    fixture, against the pipeline, the stored JAX values and the port's own
+    plain versions."""
+    import torch
+
+    from deepcharuco_tpu_torch.cli import eval as eval_cli
+    from deepcharuco_tpu_torch.cli.infer import infer_frames
+    from deepcharuco_tpu_torch.cli.pose_video import estimate
+    from deepcharuco_tpu_torch.pipeline import Camera, load_pipeline
+    from deepcharuco_tpu_torch.pnp.ransac import (sample_weights,
+                                                  solve_pnp_ransac_from_weights)
+    from deepcharuco_tpu_torch.pose_filter import PoseFilter
+
+    out = {}
+    frames = fix["frames"]
+    cam = Camera(K=fix["K"], dist=fix["dist"])
+    pipe = load_pipeline(cfg, DET, RN, camera=cam, device=dev)
+
+    # infer: the (x, y, id) rows of detect, held to the stored JAX bf16 outputs
+    with Launches(total, runs, "cli.infer"):
+        rows = infer_frames(pipe, frames)
+    kp, v, r = pipe.detect(frames)
+    same = all(np.array_equal(row[0], pipe.keypoint_array(r[i], v[i]))
+               for i, row in enumerate(rows))
+    log(f"phase 14 cli.infer core: rows equal keypoint_array(detect) on {len(rows)} frames: "
+        f"{same}; launches decode/fused {runs['cli.infer']}")
+    require(same and runs["cli.infer"][0] >= 1, "cli.infer's core differs from detect")
+    corners_agree("phase 14 cli.infer core vs JAX bf16",
+                  tuple(np.stack([row[j] for row in rows]) for j in (1, 2, 3)),
+                  stored(fix, "bf16", POSE_KEYS[:3]))
+
+    # eval: float32 (TF32 off) on the stored JAX renders against JAX's eval
+    args = eval_cli.build_argparser().parse_args(["--deepc", DET, "--refinenet", RN])
+    images = torch.from_numpy(fix["synth/det_base/out/images"].astype(np.float32)).to(dev)
+    truth = (fix["synth/det_base/out/kpts"], fix["synth/det_base/out/visible"])
+    forward = eval_cli.make_forward(args, cfg, dev)
+    with Launches(total, runs, "cli.eval"):
+        res = eval_cli.evaluate(forward, [(images, truth)], N_IDS, 3.0, "subpixel")
+    jax_eval = {k: fix[f"eval/{k}"].item() for k in ("n_target", "n_pred", "n_matched",
+                                                     "raw_mean", "refined_mean")}
+    log(f"phase 14 cli.eval core (float32, TF32 off) on the stored JAX renders: "
+        + ", ".join(f"{k} {res[k]} (JAX {jax_eval[k]})" for k in jax_eval)
+        + f"; launches decode/fused {runs['cli.eval']}")
+    require(res["n_target"] == jax_eval["n_target"], "eval: n_target differs from JAX's")
+    require(all(abs(res[k] - jax_eval[k]) <= 2 for k in ("n_pred", "n_matched")),
+            "eval: counts differ from JAX's by more than 2")
+    require(all(abs(res[k] - jax_eval[k]) <= 0.01 for k in ("raw_mean", "refined_mean")),
+            "eval: mean errors differ from JAX's by more than 0.01 px")
+    require(runs["cli.eval"][0] >= 1, "cli.eval did not launch the decode kernel")
+    out["eval"] = res
+
+    # pose_video: plain, --smooth, --ransac
+    want = pipe.detect_with_pose(frames)
+    with Launches(total, runs, "cli.pose_video"):
+        got = list(estimate(pipe, [frames[:5], frames[5:]]))
+    same = all(np.array_equal(np.asarray(g[j]), want[j][i]) for i, g in enumerate(got)
+               for j in range(6))
+    log(f"phase 14 cli.pose_video core: equal to detect_with_pose on {len(got)} frames: {same}; "
+        f"launches decode/fused {runs['cli.pose_video']}")
+    require(same and runs["cli.pose_video"][0] >= 1, "pose_video's core differs")
+    gate_t = 10.0 * cfg.square_len
+    smooth = list(estimate(pipe, [frames], pose_filter=PoseFilter(gate_t=gate_t)))
+    ref = PoseFilter(gate_t=gate_t)
+    same = True
+    for i, g in enumerate(smooth):
+        o, rv, tv, _ = ref.update(bool(want[3][i]), want[4][i].astype(np.float64),
+                                  want[5][i].astype(np.float64))
+        same &= g[3] == o and np.array_equal(g[4], rv) and np.array_equal(g[5], tv)
+    log(f"phase 14 cli.pose_video --smooth: equal to PoseFilter on detect_with_pose: {same}")
+    require(same, "pose_video --smooth differs from the pose filter")
+    robust = list(estimate(pipe, [frames], cam, ransac=True))
+    ok, rvec, tvec = (np.stack([g[j] for g in robust]) for j in (3, 4, 5))
+    # the same subsets (a generator on the card seeded 0) scored on the CPU
+    weights = sample_weights(torch.as_tensor(want[1]).to(dev), 16,
+                             generator=torch.Generator(device=dev).manual_seed(0))
+    to = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    cpu = solve_pnp_ransac_from_weights(pipe.object_points.cpu(), to(want[2]),
+                                        torch.as_tensor(want[1]), to(cam.K), to(cam.dist),
+                                        weights.cpu())
+    ok_c, rvec_c, tvec_c = (t.numpy() for t in cpu[:3])
+    held = ok & ok_c
+    d_r = np.abs(rvec - rvec_c).max(-1)
+    with np.errstate(invalid="ignore", divide="ignore"):     # frames not solved: inf
+        d_t = np.linalg.norm(tvec - tvec_c, axis=-1) / np.linalg.norm(tvec_c, axis=-1)
+    near_ls = want[3] & ok & (np.abs(rvec - want[4]).max(-1) <= 0.02)
+    log(f"phase 14 cli.pose_video --ransac (16 hypotheses from a generator on the card seeded "
+        f"0) against the port's RANSAC on the CPU on the same subsets: ok {ok.astype(int)} vs "
+        f"{ok_c.astype(int)}; on {int(held.sum())} frames held max |Δrvec| "
+        f"{d_r[held].max(initial=0):.2e} rad, max |Δtvec|/|tvec| {d_t[held].max(initial=0):.2e}; "
+        f"within 0.02 rad of the least-squares pose on {int(near_ls.sum())} of "
+        f"{int(want[3].sum())} frames")
+    require(int((ok != ok_c).sum()) <= 1, "pose_video --ransac: ok differs from the CPU's")
+    require(d_r[held].max(initial=0) <= 0.02 and d_t[held].max(initial=0) <= 0.02,
+            "pose_video --ransac: pose differs from the CPU's on the same subsets")
+    out["ransac"] = {"ok": ok.tolist(), "near_least_squares": int(near_ls.sum())}
+    return out
+
+
+def phase_entry_points(cfg, fix, dev, yard):
+    """14. The entry points users run, each through its core on the card."""
+    t0 = time.perf_counter()
+    total = {"decode": 0, "fused_head_decode": 0}
+    runs = {}
+    phase_checkpoint_forms(cfg, fix, dev)
+    out = {"benchmark": phase_benchmark_cli(dev, yard, total, runs),
+           "bench": phase_bench_module()}
+    out.update(phase_infer_eval_pose(cfg, fix, dev, total, runs))
+    out["launches"] = runs
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 14 launches on the entry points: {total} ({out['wall_s']:.1f} s)")
+    return out, total
+
+
 def main() -> int:
     import torch
 
@@ -1492,14 +1754,23 @@ def main() -> int:
     int8, int8_launches = phase_int8(cfg, pipes, fix, rng, dev)
     streams, stream_launches = phase_streams(pipes, geom_pipes, fix, rng, dev)
     train, train_launches = phase_train(cfg, fix, dev)
+    no_pose = streams["heads+decode, no pose"]["fps"]
+    entry, entry_launches = phase_entry_points(cfg, fix, dev, {
+        "detect": ("phase 5 ms/batch", serve["heads+decode"]["ms_per_batch"]),
+        "pose": ("phase 9 ms/batch", pose["serve"]["heads+decode"]["ms_per_batch"]),
+        "StreamServer": ("phase 12 StreamServer fps", max(no_pose["StreamServer"])),
+        "DeviceQueueServer": ("phase 12 DeviceQueueServer fps",
+                              max(no_pose["DeviceQueueServer"])),
+        "hires": ("phase 9 hi-res ms/batch of 64", min(pose["hires"]["with_pose_ms"]))})
     for i, row in enumerate(rows):
         row["launches_pose_path"] = pose_launches[row["name"]]
         row["launches_int8_path"] = int8_launches if row["name"] == "decode" else 0
         row["launches_served_paths"] = sum(v[i] for v in stream_launches.values())
         row["launches_train_eval"] = train_launches if row["name"] == "decode" else 0
+        row["launches_entry_points"] = entry_launches[row["name"]]
     log(json.dumps({"serve": serve, "fused_mismatch": fused_rates, "yardsticks": yard,
                     "build_s": build_s, "pose": pose, "geom": geom, "int8": int8,
-                    "streams": streams, "train": train}))
+                    "streams": streams, "train": train, "entry_points": entry}))
     log(smi())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

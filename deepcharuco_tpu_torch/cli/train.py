@@ -10,10 +10,11 @@ by the global step. A non-finite loss stops the run (checked every 100
 dispatches). ``--fused-steps K`` runs K synthesis + train steps per
 dispatch, as the JAX trainer's scan does: ``--steps`` counts dispatches.
 
-Not ported (``NotImplementedError``): the host data pipeline (training
-without ``--device-synth``, ``--mixed-host-every``, ``--eval-host-batches``),
-the background bank builder (``--bg-bank``) and more than one card
-(``--data-parallel`` with several cards, ``--mesh-spatial``).
+Not ported (``NotImplementedError`` naming the ROADMAP.md §A item): the
+host data pipeline (training without ``--device-synth``,
+``--eval-host-batches``; A4), the background bank builder (``--bg-bank``;
+A5), the mixed diet (``--mixed-host-every``; A6) and more than one card
+(``--data-parallel`` with several cards, ``--mesh-spatial``; A7).
 ``--data-parallel`` on one card does nothing, as in the JAX trainer.
 
 Run: ``python -m deepcharuco_tpu_torch.cli.train --device-synth [--device cpu]``.
@@ -77,15 +78,15 @@ def build_argparser():
 
 def refuse_unported(args, n_cards: int) -> None:
     if not args.device_synth:
-        not_ported("training without --device-synth (the host data pipeline)")
+        not_ported("training without --device-synth (the host data pipeline)", "A4")
     if args.mixed_host_every > 0:
-        not_ported("--mixed-host-every (the host data pipeline)")
+        not_ported("--mixed-host-every (the mixed diet)", "A6")
     if args.eval_host_batches > 0:
-        not_ported("--eval-host-batches (the host data pipeline)")
+        not_ported("--eval-host-batches (the host data pipeline)", "A4")
     if args.bg_bank > 0:
-        not_ported("--bg-bank (the background bank builder)")
+        not_ported("--bg-bank (the background bank builder)", "A5")
     if args.mesh_spatial > 1 or (args.data_parallel and n_cards > 1):
-        not_ported("training across several cards (DDP)")
+        not_ported("training across several cards (DDP)", "A7")
 
 
 def main(argv=None):
@@ -160,7 +161,9 @@ def main(argv=None):
                           val_match_ratio=m["match_ratio"], val_n_pred=m["n_pred"],
                           val_n_target=m["n_target"])
             val_scalars = ev.compute()
+            # the window runs to here: the next one counts this log and save
             sps = args.eval_every / (time.time() - t0)
+            t0 = time.time()
             logger.log(i + 1, {**train_scalars, **val_scalars, "steps_per_sec": sps})
             print(f"step {i+1}: train_loss={train_scalars['train_loss']:.4f} "
                   f"val_loss={val_scalars['val_loss']:.4f} "
@@ -171,7 +174,6 @@ def main(argv=None):
             # named by the global optimizer step, which a resume restores
             ckpts.save(f"step_{state.step:07d}", state_variables(state),
                        metric=val_scalars["val_loss"], optimizer=optimizer_arrays(state))
-            t0 = time.time()
     logger.close()
     print(f"best checkpoint: {ckpts.best_checkpoint()}")
 

@@ -11,7 +11,7 @@ of 32 patches, batch j from seed 888 + j, the heatmap MSE and
 step. ``--fused-steps K`` runs K steps per dispatch.
 
 Not ported (``NotImplementedError``): training without ``--device-synth``
-(the host ``RefineNetDataset``, ROADMAP.md §A).
+(the host ``RefineNetDataset``, ROADMAP.md §A, A4).
 
 Run: ``python -m deepcharuco_tpu_torch.cli.train_refinenet --device-synth``.
 """
@@ -92,7 +92,7 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     if not args.device_synth:
-        not_ported("training RefineNet without --device-synth (the host data pipeline)")
+        not_ported("training RefineNet without --device-synth (the host data pipeline)", "A4")
     if args.frame_scale > 1 and not args.frame_patches:
         raise SystemExit("--frame-scale needs --frame-patches (the direct patch "
                          "sampler has no frame to scale)")
@@ -149,7 +149,9 @@ def main(argv=None):
                 ev.update(val_refinenet_loss=aux_v["loss"],
                           val_dist_refinenet_pixels=refinenet_metric(heat_hat, h))
             val_scalars = ev.compute()
+            # the window runs to here: the next one counts this log and save
             sps = args.eval_every / (time.time() - t0)
+            t0 = time.time()
             logger.log(i + 1, {**train_scalars, **val_scalars, "steps_per_sec": sps})
             print(f"step {i+1}: loss={train_scalars['train_refinenet_loss']:.5f} "
                   f"val={val_scalars['val_refinenet_loss']:.5f} "
@@ -158,7 +160,6 @@ def main(argv=None):
             ckpts.save(f"step_{state.step:07d}", state_variables(state),
                        metric=val_scalars["val_refinenet_loss"],
                        optimizer=optimizer_arrays(state))
-            t0 = time.time()
     logger.close()
     print(f"best checkpoint: {ckpts.best_checkpoint()}")
 

@@ -2,7 +2,7 @@
 
 Only the one-card part is ported: :func:`synth_scan_program`. The mesh,
 sharded steps and data parallelism across cards (``parallel/mesh.py`` →
-DDP) are not (ROADMAP.md §A, A10).
+DDP) are not (ROADMAP.md §A, A7).
 """
 
 from __future__ import annotations

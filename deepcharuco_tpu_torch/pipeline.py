@@ -17,7 +17,10 @@ detector at its trunk and runs heads + decode in one kernel
   reproj_rms)
 - :class:`Camera` — intrinsics in cv2 conventions
 - :class:`InferencePipeline` — holds the models, numpy in and out
-- :func:`load_pipeline` — builds one from ``.npz`` weight files
+- :func:`load_pipeline` — builds one from weight files
+- :func:`load_model_variables` — the weight tree of any weight form: a
+  Lightning ``.ckpt`` (``compat``), a shipped ``.npz``, a directory of the
+  port's ``train.checkpoints.CheckpointManager``, or seeded random weights
 - :func:`load_detector_any`, :func:`is_quantized_npz` — the float detector
   or the int8 one (``models/quant.py``), by the file's layout
 
@@ -27,9 +30,9 @@ plain versions.
 
 The geometry decode (``geom_*``, ``ops/geom.py``) and the int8 detector
 read the detector's logits, so both decode through the decode kernel and
-refuse ``fused_head=True``. Not ported yet (``NotImplementedError``, see
-ROADMAP.md "Open items"): loading Lightning ``.ckpt`` files and orbax
-checkpoints.
+refuse ``fused_head=True``. An orbax checkpoint directory of the JAX
+trainers is JAX's format: :func:`load_model_variables` refuses it and names
+the conversion.
 """
 
 from __future__ import annotations
@@ -111,10 +114,6 @@ _MAX_POSE_GRAPHS = 8
 # the geometric prediction is trusted instead: a fill over occluded texture
 # has no corner signal to refine, and the refiner drifts.
 _FILL_TRUST_PX = 1.5
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Open items {item})")
 
 
 def _check_decode_options(detector, fused_head: bool, decode_capacity: int = 1,
@@ -449,17 +448,51 @@ def merge_variables(dst, src, _path=""):
                      f"{getattr(dst, 'shape', '?')})"]
 
 
-def _load_variables(ckpt: Optional[str], kind: str, n_ids: int = 16):
-    """JAX-layout variables from an ``.npz`` file, or seeded random ones."""
+def load_model_variables(ckpt: Optional[str], kind: str, n_ids: int = 16):
+    """The JAX-layout weight tree (numpy) of ``kind`` (``"detector"`` or
+    ``"refinenet"``) from any weight form the JAX package's
+    ``load_model_variables`` takes that is not JAX's own:
+
+    - ``*.ckpt``: a reference Lightning checkpoint, through ``compat``;
+    - ``*.npz``: the shipped format;
+    - a directory holding ``variables.npz``: a checkpoint of the port's
+      ``train.checkpoints.CheckpointManager`` (``<ckpt-dir>/step_NNNNNNN``);
+    - ``None``: seeded random weights (``torch.manual_seed(0)``).
+
+    A directory without ``variables.npz`` (an orbax checkpoint of the JAX
+    trainers) raises ``ValueError``: convert it where JAX is installed, with
+    the JAX package's ``load_model_variables`` then ``variables_to_npz``."""
+    if kind not in ("detector", "refinenet"):
+        raise ValueError(f"kind must be 'detector' or 'refinenet', got {kind!r}")
     if ckpt is None:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
             if kind == "detector":
                 return detector_variables(Detector(n_ids, torch.float32).state_dict())
             return refinenet_variables(RefineNet(torch.float32).state_dict())
-    if not str(ckpt).endswith(".npz"):
-        _not_ported("loading Lightning .ckpt files and orbax checkpoints", "A1")
-    return variables_from_npz(ckpt)
+    ckpt = str(ckpt)
+    if ckpt.endswith(".ckpt"):
+        from deepcharuco_tpu_torch.compat import (detector_variables_from_torch,
+                                                  load_lightning_checkpoint,
+                                                  refinenet_variables_from_torch)
+
+        convert = (detector_variables_from_torch if kind == "detector"
+                   else refinenet_variables_from_torch)
+        return convert(load_lightning_checkpoint(ckpt))
+    if ckpt.endswith(".npz"):
+        return variables_from_npz(ckpt)
+    if os.path.isdir(ckpt):
+        from deepcharuco_tpu_torch.train.checkpoints import VARIABLES
+
+        path = os.path.join(ckpt, VARIABLES)
+        if os.path.isfile(path):
+            return variables_from_npz(path)
+        raise ValueError(
+            f"{ckpt} holds no {VARIABLES}: an orbax checkpoint of the JAX trainers is "
+            "JAX's format. Convert it where JAX is installed: "
+            "deepcharuco_tpu.pipeline.load_model_variables(dir, kind), then "
+            "deepcharuco_tpu.pipeline.variables_to_npz(out.npz, variables)")
+    raise ValueError(f"{ckpt}: not a .ckpt or .npz file or a checkpoint directory")
 
 
 def load_detector_any(ckpt: Optional[str], n_ids: int,
@@ -473,7 +506,7 @@ def load_detector_any(ckpt: Optional[str], n_ids: int,
     if is_quantized_npz(ckpt):
         return QuantDetector(qvars_from_npz(ckpt), n_ids).to(dev).eval()
     det = Detector(n_ids=n_ids, dtype=compute_dtype)
-    sd = detector_state_dict(_load_variables(ckpt, "detector", n_ids))
+    sd = detector_state_dict(load_model_variables(ckpt, "detector", n_ids))
     return load_state(det, sd).to(dev).eval()
 
 
@@ -487,15 +520,16 @@ def load_pipeline(config: Config, deepc_ckpt: Optional[str] = None,
                   min_margin: Optional[float] = None, pnp_iters: int = 20,
                   soft_refine: bool = False, decode_capacity: int = 1,
                   fused_head: bool = False, device=None) -> "InferencePipeline":
-    """An :class:`InferencePipeline` from ``.npz`` weight files (None → the
-    detector gets seeded random weights, the refiner is left out).
+    """An :class:`InferencePipeline` from weight files in any form
+    :func:`load_model_variables` takes (None → the detector gets seeded
+    random weights, the refiner is left out).
     ``hires``: False (base resolution), True/2 (2× patch tap), or 4. An int8
     detector artifact is recognised by its layout and served through
     :class:`~deepcharuco_tpu_torch.models.quant.QuantDetector`; no flag."""
     det_quant = "int8" if is_quantized_npz(deepc_ckpt) else None
     dv = (qvars_from_npz(deepc_ckpt) if det_quant
-          else _load_variables(deepc_ckpt, "detector", config.n_ids))
-    rv = (_load_variables(refinenet_ckpt, "refinenet")
+          else load_model_variables(deepc_ckpt, "detector", config.n_ids))
+    rv = (load_model_variables(refinenet_ckpt, "refinenet")
           if refinenet_ckpt is not None else None)
     return InferencePipeline(config, dv, rv, camera=camera, det_quant=det_quant,
                              compute_dtype=compute_dtype, pnp_iters=pnp_iters,
@@ -727,5 +761,6 @@ class InferencePipeline:
 
 
 __all__ = ["Camera", "InferencePipeline", "load_pipeline", "load_detector_any",
+           "load_model_variables",
            "is_quantized_npz", "two_stage_forward", "two_stage_forward_hires",
            "full_forward", "full_forward_hires", "resolve_device"]

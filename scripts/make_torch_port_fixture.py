@@ -67,6 +67,12 @@ frames:
   two float32 runs and from float64 (Adam steps every parameter by about
   the learning rate whatever its gradient, so the gradients' rounding
   decides the next loss).
+- ``eval/...``: the JAX package's evaluation (``cli/eval.py``'s forward:
+  float32 detector, ``pred_to_keypoints``, the 24-px RefineNet with the
+  hard decode, shipped weights) on the 4 stored ``det_base`` images against
+  their sub-pixel truth (``kpts``, ``visible``), ``--px-margin 3``:
+  ``keypoints``, ``valid``, ``refined`` and ``n_target``, ``n_pred``,
+  ``n_matched``, ``raw_mean``, ``refined_mean``.
 
 Run from the repository root: ``python scripts/make_torch_port_fixture.py``.
 The file is regenerated only by this script.
@@ -332,6 +338,31 @@ def train_steps(images, a, b, model, variables, lr, loss_keys) -> dict:
     return out
 
 
+def jax_eval(out: dict) -> dict:
+    """``cli/eval.py``'s forward and figures on the stored ``det_base`` renders."""
+    from deepcharuco_tpu.ops import extract_patches, pred_to_keypoints, refine_keypoints
+
+    det, rn = Detector(n_ids=16, dtype=jnp.float32), RefineNet(dtype=jnp.float32)
+    dv, rv = variables_from_npz(DET), variables_from_npz(RN)
+    images = jnp.asarray(out["synth/det_base/out/images"].astype(np.float32))
+    o = det.apply(dv, images)
+    kp, valid = pred_to_keypoints(o["loc"], o["ids"], 16)
+    patches = extract_patches(images, kp, patch_size=24)
+    n, k, p, _ = patches.shape
+    heat = rn.apply(rv, patches.reshape(n * k, p, p, 1)).reshape(n, k, 64, 64)
+    refined = refine_keypoints(heat, kp)
+    kp, valid, refined = np.asarray(kp), np.asarray(valid), np.asarray(refined)
+    kt, vt = out["synth/det_base/out/kpts"], out["synth/det_base/out/visible"]
+    both = valid & vt
+    d_raw = np.linalg.norm(kp - kt, axis=-1)[both]
+    d_ref = np.linalg.norm(refined - kt, axis=-1)[both]
+    return {"eval/keypoints": kp, "eval/valid": valid, "eval/refined": refined,
+            "eval/n_target": np.int64(vt.sum()), "eval/n_pred": np.int64(valid.sum()),
+            "eval/n_matched": np.int64((d_raw < 3.0).sum()),
+            "eval/raw_mean": np.float64(d_raw.mean()),
+            "eval/refined_mean": np.float64(d_ref.mean())}
+
+
 def main():
     x, x_hi = frames(), frames_hi()
     out = {"frames": x, "frames_hi": x_hi, "K": K, "K_hi": K_HI, "dist": DIST}
@@ -367,6 +398,7 @@ def main():
                      jnp.asarray(out["synth/refine/out/heatmaps"]), None,
                      RefineNet(dtype=jnp.float32), variables_from_npz(RN), 1e-4, ("loss",))
     out.update(_flat(rn, "train/rn"))
+    out.update(jax_eval(out))
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **out)
     print(OUT, os.path.getsize(OUT), "bytes;",

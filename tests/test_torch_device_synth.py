@@ -75,10 +75,15 @@ def test_board_asset_equals_the_jax_render(size):
 
 
 def test_board_asset_refuses_what_it_does_not_hold():
+    """A size or a board that the asset does not store is drawn from the
+    ArUco bits it holds (``tests/test_torch_board.py`` holds the drawing to
+    cv2's); a dictionary whose bits it does not hold is refused."""
+    gray, corners = B.rendered_board(default_config(), 100)
+    assert gray.shape == (100, 100) and corners.shape == (16, 2)
+    gray, corners = B.rendered_board(default_config(row_count=6), 240)
+    assert gray.shape == (240, 240) and corners.shape == (20, 2)
     with pytest.raises(KeyError, match="make_torch_port_board.py"):
-        B.rendered_board(default_config(), 100)
-    with pytest.raises(KeyError, match="make_torch_port_board.py"):
-        B.rendered_board(default_config(row_count=6), 240)
+        B.rendered_board(default_config(board_name="DICT_NOT_THERE"), 240)
 
 
 # --- renders on JAX's draws -------------------------------------------------

@@ -188,11 +188,11 @@ def test_options_outside_the_slice_are_not_ported(kwargs):
     assert kp.shape == (1, 16, 2) and not valid.any()
 
 
-def test_functional_entry_points_refuse_the_geometry_decode(fix):
+def test_functional_entry_points_refuse_the_geometry_decode(fix, tmp_path):
     """They no longer refuse it: with ``geom_board_xy`` both run, and on a
     frame without a board (an untrained detector finds no six consistent
     corners) they give the parity decode. What is still refused is a
-    checkpoint format that is not ported."""
+    checkpoint format that is JAX's own: an orbax directory."""
     det = Detector(16, torch.float32).eval()
     xy = OBJ[:, :2]
     x = fix["frames"][:1]
@@ -201,8 +201,9 @@ def test_functional_entry_points_refuse_the_geometry_decode(fix):
         got = fn(det, None, x, 16, *extra, geom_board_xy=xy, device="cpu")
         assert torch.equal(got[1], want[1])
         assert torch.equal(got[0][want[1]], want[0][want[1]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_pipeline(CFG, "weights.ckpt", device="cpu")
+    (tmp_path / "checkpoint").write_text("{}")
+    with pytest.raises(ValueError, match="JAX's format"):
+        load_pipeline(CFG, str(tmp_path), device="cpu")
 
 
 # ------------------------------------------------------------------ camera

@@ -159,5 +159,7 @@ def test_the_static_checks_cover_the_new_modules():
                  "data/device_synth.py", "train/__init__.py", "train/steps.py",
                  "train/metrics.py", "train/checkpoints.py", "train/logging.py",
                  "parallel/__init__.py", "cli/__init__.py", "cli/train.py",
-                 "cli/train_refinenet.py"):
+                 "cli/train_refinenet.py", "compat/__init__.py", "compat/torch_convert.py",
+                 "utils.py", "pose_filter.py", "bench.py", "cli/benchmark.py",
+                 "cli/infer.py", "cli/eval.py", "cli/pose_video.py"):
         assert os.path.join("deepcharuco_tpu_torch", *want.split("/")) in rels
