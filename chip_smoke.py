@@ -115,7 +115,21 @@ stopping at the first failure with a non-zero exit:
     eval: ``n_target`` equal, counts within 2, mean errors within 0.01 px)
     and ``cli.pose_video`` (equal to ``detect_with_pose``; ``--smooth``
     equal to ``PoseFilter``; ``--ransac`` against the port's RANSAC on the
-    CPU on the same subsets, within phase 7's limits).
+    CPU on the same subsets, within phase 7's limits);
+15. the host data pipeline (numpy and the native core; no cv2 on the card's
+    machine): the native core built by g++; ``CharucoDataset`` (native and
+    numpy routes), ``RefineNetDataset`` and ``make_background_bank(8)``
+    against the JAX package's samples stored in the fixture (``host/...``:
+    labels and corners equal, images within a level on 0.1% of pixels
+    natively, 2 levels on 1% on the numpy route); ``cli.train`` on the host
+    stream and with ``--device-synth --bg-bank 8 --mixed-host-every 3
+    --eval-host-batches 2`` at batch 32, ``cli.train_refinenet`` on the host
+    stream, ``cli.eval --source host --samples 64`` and ``cli.quantize``:
+    finite scalars, the ``val_host_*`` scalars, B1's launches; host
+    samples/s of both datasets through ``BatchLoader`` at 1, 2, 4 and the
+    config's threads, host-fed training steps/s beside on-card synthesis
+    and the mixed diet, the card's idle share under host-fed training, and
+    a 64-image bank's build time.
 
 Its last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with the kernels' numbers, and ``{"ok": true, "device": {...}}``. Imports
@@ -1705,6 +1719,263 @@ def phase_entry_points(cfg, fix, dev, yard):
     return out, total
 
 
+# --- 15. the host data pipeline -------------------------------------------------
+
+HOST_NATIVE_SHARE = 0.001   # native route: share of pixels that may differ (a level)
+HOST_NUMPY_SHARE = 0.01     # numpy route: share of pixels that may differ ...
+HOST_NUMPY_LEVELS = 2       # ... each by at most this many levels
+
+
+def host_fixture_agreement(fix) -> dict:
+    """The port's host pipeline against the JAX package's samples stored in
+    the fixture (``host/...``): both routes of ``CharucoDataset`` and
+    ``RefineNetDataset`` (validation streams) and ``make_background_bank(8)``.
+    Labels and RefineNet corners must be equal; images may differ where the
+    native core's floating point does (a level on at most 0.1% of pixels)
+    and, on the numpy route, on at most 1% of pixels by at most 2 levels.
+    Runs on the CPU as well (the tests call it)."""
+    from deepcharuco_tpu_torch.configs import default_config
+    from deepcharuco_tpu_torch.data import CharucoDataset, RefineNetDataset, make_background_bank
+
+    cfg = default_config()
+    gray = lambda img: np.rint(img * 255.0 + 128.0).astype(np.uint8)[..., 0]
+    out = {}
+    for route in ("native", "numpy"):
+        native = route == "native"
+        det = CharucoDataset(cfg, validation=True, use_native=native)
+        items = [det[i] for i in range(4)]
+        for k in ("loc", "ids"):
+            require(np.array_equal(np.stack([it[k] for it in items]),
+                                   fix[f"host/det_{route}/{k}"]),
+                    f"host CharucoDataset ({route}): {k} differs from the JAX package's")
+        d_det = np.abs(np.stack([gray(it["image"]) for it in items]).astype(int)
+                       - fix[f"host/det_{route}/gray"])
+        rn = RefineNetDataset(cfg, validation=True, use_native=native)
+        items = [rn[i] for i in range(2)]
+        corners = np.array([[np.unravel_index(np.argmax(h[..., 0]), h.shape[:2])[::-1]
+                             for h in it["heatmaps"]] for it in items])
+        require(np.array_equal(corners, fix[f"host/rn_{route}/corners"]),
+                f"host RefineNetDataset ({route}): corners differ from the JAX package's")
+        d_rn = np.abs(np.stack([gray(it["patches"]) for it in items]).astype(int)
+                      - fix[f"host/rn_{route}/gray"])
+        for name, d in (("detector images", d_det), ("RefineNet patches", d_rn)):
+            share = float((d > 0).mean())
+            out[f"{route} {name}"] = {"share": share, "max_levels": int(d.max())}
+            if native:
+                require(share <= HOST_NATIVE_SHARE and d.max() <= 1,
+                        f"host {name} (native): {share:.2e} of pixels differ, up to {d.max()}")
+            else:
+                require(share <= HOST_NUMPY_SHARE and d.max() <= HOST_NUMPY_LEVELS,
+                        f"host {name} (numpy): {share:.2e} of pixels differ, up to {d.max()}")
+    d = np.abs(make_background_bank(8).astype(int) - fix["host/bank"])
+    out["bank"] = {"share": float((d > 0).mean()), "max_levels": int(d.max())}
+    require(out["bank"]["share"] <= HOST_NATIVE_SHARE and d.max() <= 1,
+            f"make_background_bank(8): {out['bank']} against the JAX package's")
+    return out
+
+
+def host_rate(dataset, batch: int, workers: int) -> float:
+    """Samples per second of ``dataset`` through a fresh ``BatchLoader`` with
+    ``workers`` threads: 3·workers + 1 batches from the start of the threads
+    (so that the queue's first batches, made in parallel, are a small part)."""
+    from deepcharuco_tpu_torch.data import BatchLoader
+
+    n = 3 * workers + 1
+    t0 = time.perf_counter()
+    loader = BatchLoader(dataset, batch, num_workers=workers, seed=0, max_batches=n)
+    try:
+        for _ in loader:
+            pass
+    finally:
+        loader.stop()
+    return n * batch / (time.perf_counter() - t0)
+
+
+def phase_host_clis(cfg, dev):
+    """Both trainers and the evaluation on the host stream through their
+    CLIs at full width; B1's launches counted over them."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepcharuco_tpu_torch.cli import eval as eval_cli
+    from deepcharuco_tpu_torch.cli import quantize as quant_cli
+    from deepcharuco_tpu_torch.cli import train as det_cli
+    from deepcharuco_tpu_torch.cli import train_refinenet as rn_cli
+    from deepcharuco_tpu_torch.ops import cuda_decode
+    from deepcharuco_tpu_torch.pipeline import load_pipeline
+
+    torch.backends.cudnn.allow_tf32 = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
+    out = {}
+    try:
+        cuda_decode.launches = 0
+        runs = {
+            "host": ["--steps", "6", "--eval-every", "3", "--eval-host-batches", "2"],
+            "mixed": ["--device-synth", "--bg-bank", "8", "--mixed-host-every", "3",
+                      "--steps", "6", "--eval-every", "3", "--eval-host-batches", "2"]}
+        for name, flags in runs.items():
+            t0 = time.perf_counter()
+            det_cli.main(flags + ["--eval-batches", "2", "--logdir", os.path.join(tmp, name),
+                                  "--ckpt-dir", os.path.join(tmp, f"ck_{name}")])
+            rows = jsonl_rows(os.path.join(tmp, name))
+            out[f"train {name}"] = {"wall_s": time.perf_counter() - t0, "rows": rows}
+            log(f"phase 15 cli.train {' '.join(flags)} (batch {cfg.bs_train}): "
+                f"{time.perf_counter() - t0:.1f} s; "
+                + "; ".join(f"step {r['step']}: train_loss {r['train_loss']:.4f} val_loss "
+                            f"{r['val_loss']:.4f}"
+                            + (f" val_host_loss {r['val_host_loss']:.4f} host_match "
+                               f"{r['val_host_match_ratio']:.3f}" if "val_host_loss" in r
+                               else "") for r in rows))
+            require([r["step"] for r in rows] == [3, 6], f"cli.train ({name}) logged wrong steps")
+            require(all(np.isfinite(r[k]) for r in rows for k in r),
+                    f"cli.train ({name}): non-finite scalars")
+        require(all("val_host_loss" in r for r in out["train mixed"]["rows"]),
+                "cli.train --eval-host-batches logged no val_host_* scalars")
+        t0 = time.perf_counter()
+        rn_cli.main(["--steps", "4", "--eval-every", "2", "--eval-batches", "2",
+                     "--init-npz", RN, "--logdir", os.path.join(tmp, "rn"),
+                     "--ckpt-dir", os.path.join(tmp, "ck_rn")])
+        rn_rows = jsonl_rows(os.path.join(tmp, "rn"))
+        log(f"phase 15 cli.train_refinenet on the host stream (batch {cfg.bs_train_rn}: "
+            f"{cfg.bs_train_rn // 8} images × 8 patches): {time.perf_counter() - t0:.1f} s; "
+            + "; ".join(f"step {r['step']}: loss {r['train_refinenet_loss']:.5f} val "
+                        f"{r['val_refinenet_loss']:.5f}" for r in rn_rows))
+        require(len(rn_rows) == 2 and all(np.isfinite(r[k]) for r in rn_rows for k in r),
+                "cli.train_refinenet on the host stream: scalars")
+        out["train_refinenet host"] = rn_rows
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        res = eval_cli.main(["--source", "host", "--samples", "64", "--deepc", DET,
+                             "--refinenet", RN])
+        log(f"phase 15 cli.eval --source host --samples 64 (shipped weights, float32): "
+            f"{time.perf_counter() - t0:.1f} s; {res}")
+        require(res["samples"] == 64 and res["n_target"] > 0 and res["raw_mean"] is not None
+                and np.isfinite(res["refined_mean"]), "cli.eval --source host")
+        out["eval host"] = res
+        launches = cuda_decode.launches
+        log(f"phase 15 B1 launches on the host-fed paths: {launches}")
+        # one per eval batch: host run 2 evals × 2, mixed run 2 × (2 + 2 host), eval 4
+        require(launches == 4 + 8 + 4, f"B1 launched {launches} times on the host paths, "
+                "expected 16")
+        t0 = time.perf_counter()
+        q = quant_cli.main([DET, "--out", os.path.join(tmp, "int8.npz")])
+        pipe = load_pipeline(cfg, os.path.join(tmp, "int8.npz"), RN, device=dev)
+        log(f"phase 15 cli.quantize (64 calibration, 32 eval boards on the card): "
+            f"{time.perf_counter() - t0:.1f} s; {q}; serves as {type(pipe.detector).__name__}")
+        require(q["detections_int8"] > 0 and type(pipe.detector).__name__ == "QuantDetector",
+                "cli.quantize: the artifact does not serve as the int8 detector")
+        out["quantize"] = q
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.allow_tf32 = False
+    return out, launches
+
+
+def phase_host_measure(cfg, dev):
+    """Host samples/s of both datasets by thread count; host-fed training
+    steps/s beside on-card synthesis in the same call, the card's idle share
+    under host-fed training, the mixed diet's cost; a 64-image bank's build."""
+    import torch
+
+    from deepcharuco_tpu_torch.data import (BatchLoader, CharucoDataset, DeviceSynthesizer,
+                                            RefineNetDataset, device_prefetch,
+                                            make_background_bank)
+    from deepcharuco_tpu_torch.models import Detector
+    from deepcharuco_tpu_torch.parallel import synth_scan_program
+    from deepcharuco_tpu_torch.train import (create_detector_state, flax_init_,
+                                             make_detector_train_step)
+
+    out = {"cpu_count": os.cpu_count(), "num_workers": cfg.num_workers}
+    threads = sorted({1, 2, 4, cfg.num_workers})
+    for name, make, batch in (("CharucoDataset", lambda: CharucoDataset(cfg), cfg.bs_train),
+                              ("RefineNetDataset", lambda: RefineNetDataset(cfg),
+                               cfg.bs_train_rn // 8)):
+        rates = {w: host_rate(make(), batch, w) for w in threads}
+        out[f"{name} samples_per_s"] = rates
+        log(f"phase 15 {name} through BatchLoader (batch {batch}), samples/s by threads "
+            f"({os.cpu_count()} CPUs): " + ", ".join(f"{w}: {r:.1f}" for w, r in rates.items()))
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    bs = cfg.bs_train
+    state = create_detector_state(flax_init_(Detector(cfg.n_ids, torch.float32)).to(dev))
+    step = make_detector_train_step()
+    synth = DeviceSynthesizer(cfg, device=dev)
+    program = synth_scan_program(step, lambda g: synth.batch(g, bs))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    loaders = []
+
+    def fresh_feed():
+        loaders.append(BatchLoader(CharucoDataset(cfg), bs, num_workers=cfg.num_workers,
+                                   seed=0))
+        return device_prefetch(loaders[-1], size=2, device=dev)
+
+    def run(n, feed=None, every=0):
+        """n dispatches: host batches from ``feed`` (every ``every``-th one
+        with ``every``), else on-card synthesis; the last loss."""
+        nonlocal state
+        for i in range(n):
+            if feed is not None and (every == 0 or (i + 1) % every == 0):
+                b = next(feed)
+                state, aux = step(state, b["image"], b["loc"], b["ids"])
+            else:
+                state, aux = program(state, gen)
+        return float(aux["loss"])
+
+    def rate(n, warm, **kw):
+        # warm-up first: it also drains what the threads made before the steps began
+        run(warm, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = run(n, **kw)
+        torch.cuda.synchronize()
+        require(np.isfinite(loss), "non-finite training loss")
+        return n / (time.perf_counter() - t0)
+
+    try:
+        sps = {"device-synth": rate(40, 5)}
+        feed = fresh_feed()
+        sps["host"] = rate(16, 8, feed=feed)
+        busy, span, n_ops = busy_share(lambda: run(8, feed=feed))
+        loaders.pop().stop()
+        sps["mixed every 3"] = rate(24, 9, feed=fresh_feed(), every=3)
+        loaders.pop().stop()
+        sps["device-synth again"] = rate(40, 5)
+        out["steps_per_s"] = sps
+        out["host_fed_idle_share"] = 1 - busy / span
+        log(f"phase 15 detector training at batch {bs}, TF32 on, steps/s: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sps.items())
+            + f"; host-fed, 8 steps under the profiler: the card busy {busy:.1f} of "
+              f"{span:.1f} ms (idle share {1 - busy / span:.4f}, {n_ops} device operations)")
+    finally:
+        for loader in loaders:
+            loader.stop()
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    bank = make_background_bank(64)
+    out["bank64_s"] = time.perf_counter() - t0
+    log(f"phase 15 make_background_bank(64) (procedural, native): {out['bank64_s']:.2f} s, "
+        f"{bank.nbytes / 2 ** 20:.1f} MiB")
+    return out
+
+
+def phase_host(cfg, fix, dev):
+    """15. The host data pipeline: the native core's build, agreement with
+    the stored JAX samples, the host-fed CLIs, the measurements."""
+    from deepcharuco_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    native.load()
+    out = {"native_build_s": time.perf_counter() - t0}
+    log(f"phase 15 native core: {native.lib_path().name} in {out['native_build_s']:.1f} s")
+    out["agreement"] = host_fixture_agreement(fix)
+    log(f"phase 15 host pipeline against the stored JAX samples: {out['agreement']}")
+    out["clis"], launches = phase_host_clis(cfg, dev)
+    out["measure"] = phase_host_measure(cfg, dev)
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -1762,15 +2033,18 @@ def main() -> int:
         "DeviceQueueServer": ("phase 12 DeviceQueueServer fps",
                               max(no_pose["DeviceQueueServer"])),
         "hires": ("phase 9 hi-res ms/batch of 64", min(pose["hires"]["with_pose_ms"]))})
+    host, host_launches = phase_host(cfg, fix, dev)
     for i, row in enumerate(rows):
         row["launches_pose_path"] = pose_launches[row["name"]]
         row["launches_int8_path"] = int8_launches if row["name"] == "decode" else 0
         row["launches_served_paths"] = sum(v[i] for v in stream_launches.values())
         row["launches_train_eval"] = train_launches if row["name"] == "decode" else 0
         row["launches_entry_points"] = entry_launches[row["name"]]
+        row["launches_host_paths"] = host_launches if row["name"] == "decode" else 0
     log(json.dumps({"serve": serve, "fused_mismatch": fused_rates, "yardsticks": yard,
                     "build_s": build_s, "pose": pose, "geom": geom, "int8": int8,
-                    "streams": streams, "train": train, "entry_points": entry}))
+                    "streams": streams, "train": train, "entry_points": entry,
+                    "host": host}))
     log(smi())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

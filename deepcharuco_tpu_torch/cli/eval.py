@@ -1,14 +1,15 @@
 """Corner-accuracy evaluation (``deepcharuco_tpu.cli.eval``).
 
-Runs the seeded validation stream of on-card synthetic boards
-(``data.DeviceSynthesizer``, batch j from ``torch.Generator`` seed j; the
-JAX package draws from its own keys, so the samples differ) through float32
-models and compares the raw and the refined corners with the truth: the
+Runs a seeded validation stream through float32 models: on-card synthetic
+boards (``--source device``, the default: ``data.DeviceSynthesizer``, batch
+j from ``torch.Generator`` seed j; the JAX package draws from its own keys,
+so the samples differ) or the host pipeline (``--source host``: the
+validation ``CharucoDataset``, seeded 42 and equal to the JAX package's
+stream, on ``--images``/``--labels`` photos or procedural backgrounds), and compares the raw and the refined corners with the truth: the
 label maps (the reference's semantics) or, with ``--truth subpixel``, the
 exact warped corner positions. The decode is the decode kernel on the card.
 :func:`make_forward` builds the forward, :func:`synth_batches` the stream,
-:func:`evaluate` the figures. Not ported: the host validation stream
-(``--source host``, ``--images``, ``--labels``; ROADMAP.md §A, A4).
+:func:`evaluate` the figures, :func:`host_batches` the host stream.
 
 Run: ``python -m deepcharuco_tpu_torch.cli.eval [--device cpu]``.
 """
@@ -25,7 +26,8 @@ def build_argparser():
     p.add_argument("--refinenet", default=None)
     p.add_argument("--samples", type=int, default=64)
     p.add_argument("--source", choices=["host", "device"], default="device",
-                   help="validation stream: device (on-card synthesis) or host (not ported)")
+                   help="validation stream: device (on-card synthesis) or host (the "
+                        "host pipeline, the JAX package's seeded stream)")
     p.add_argument("--px-margin", type=float, default=3.0)
     p.add_argument("--min-margin", type=float, default=None,
                    help="id-vs-dustbin logit margin filter (decode knob)")
@@ -41,8 +43,8 @@ def build_argparser():
                    help="decode the refine heatmap with soft-argmax instead of hard argmax")
     p.add_argument("--rn-upsample", choices=["nearest", "bilinear"], default="nearest")
     p.add_argument("--rn-patch-size", type=int, choices=[24, 32], default=24)
-    p.add_argument("--images", default=None, help="host stream images (not ported)")
-    p.add_argument("--labels", default=None, help="host stream labels (not ported)")
+    p.add_argument("--images", default=None, help="host stream: background image directory")
+    p.add_argument("--labels", default=None, help="host stream: COCO captions json")
     p.add_argument("--frontal", action="store_true",
                    help="device source: axis-snapped frontal geometry, standard photometry")
     p.add_argument("--scale", type=float, default=None,
@@ -156,6 +158,23 @@ def synth_batches(args, cfg, device, bs: int = 16):
             yield images, (loc, ids)
 
 
+def host_batches(args, cfg, device, bs: int = 16):
+    """The host validation stream: ``max(1, samples // bs)`` batches of
+    (images, (loc, ids)) on ``device``, batch j holding samples j·bs …
+    j·bs + bs − 1 of the validation ``CharucoDataset``."""
+    import numpy as np
+    import torch
+
+    from deepcharuco_tpu_torch.data import CharucoDataset
+
+    ds = CharucoDataset(cfg, labels=args.labels, images_folder=args.images, validation=True)
+    for j in range(max(1, args.samples // bs)):
+        items = [ds[j * bs + k] for k in range(bs)]
+        images, loc, ids = (torch.from_numpy(np.stack([it[key] for it in items])).to(device)
+                            for key in ("image", "loc", "ids"))
+        yield images, (loc, ids)
+
+
 def evaluate(forward, batches, n_ids: int, px_margin: float = 3.0,
              truth: str = "labels") -> dict:
     """Raw and refined corner errors of ``forward`` over ``batches`` of
@@ -200,21 +219,21 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
 
     from deepcharuco_tpu_torch._device import resolve_device
-    from deepcharuco_tpu_torch.cli import not_ported
     from deepcharuco_tpu_torch.configs import default_config, load_configuration
 
-    if args.source == "host" or args.images or args.labels:
-        not_ported("the host validation stream (--source host, --images, --labels)", "A4")
     if args.geom_fill and not args.geom_decode:
         raise SystemExit("--geom-fill requires --geom-decode")
-    if args.hires and args.truth != "subpixel":
+    if args.hires and (args.source != "device" or args.truth != "subpixel"):
         raise SystemExit("--hires requires --source device --truth subpixel")
+    if args.truth == "subpixel" and args.source != "device":
+        raise SystemExit("--truth subpixel requires --source device")
     dev = resolve_device(args.device)
     cfg = load_configuration(args.config) if args.config else default_config()
     if args.deepc is None:
         print("WARNING: random detector weights")
-    res = evaluate(make_forward(args, cfg, dev), synth_batches(args, cfg, dev), cfg.n_ids,
-                   args.px_margin, args.truth)
+    batches = (host_batches if args.source == "host" else synth_batches)(args, cfg, dev)
+    res = evaluate(make_forward(args, cfg, dev), batches, cfg.n_ids, args.px_margin,
+                   args.truth)
     print(f"samples: {res['samples']}  target corners: {res['n_target']}  "
           f"predicted: {res['n_pred']}  matched(<{args.px_margin}px): {res['n_matched']}")
     if res["raw_mean"] is not None:

@@ -1,23 +1,33 @@
-"""Detector training on the card (``deepcharuco_tpu.cli.train``).
+"""Detector training (``deepcharuco_tpu.cli.train``), on the card unless
+``--device cpu``.
 
-The ``--device-synth`` path: each batch is synthesised on the card from a
-``torch.Generator`` (seeded 1234, the JAX trainer's feed key), the train
-step runs beside it, and the host only loops. Every ``--eval-every``
-dispatches the model is scored on ``--eval-batches`` batches of 16, batch j
-drawn from seed 777 + j, with ``train.metrics.detector_metrics`` (the decode
-kernel on the card), the scalars logged and a top-k checkpoint written, named
-by the global step. A non-finite loss stops the run (checked every 100
-dispatches). ``--fused-steps K`` runs K synthesis + train steps per
-dispatch, as the JAX trainer's scan does: ``--steps`` counts dispatches.
+Two feeds, as in the JAX trainer:
 
-Not ported (``NotImplementedError`` naming the ROADMAP.md §A item): the
-host data pipeline (training without ``--device-synth``,
-``--eval-host-batches``; A4), the background bank builder (``--bg-bank``;
-A5), the mixed diet (``--mixed-host-every``; A6) and more than one card
-(``--data-parallel`` with several cards, ``--mesh-spatial``; A7).
-``--data-parallel`` on one card does nothing, as in the JAX trainer.
+- ``--device-synth``: each batch is synthesised on the card from a
+  ``torch.Generator`` (seeded 1234, the JAX trainer's feed key) beside the
+  train step; ``--fused-steps K`` runs K synthesis + train steps per
+  dispatch (``--steps`` counts dispatches). ``--bg-bank N`` builds N gray
+  backgrounds on the host once (from ``--images``/``--labels``, else the
+  procedural source) and composites boards on crops of them on the card with
+  probability ``--bg-bank-p``. ``--mixed-host-every N`` replaces every Nth
+  dispatch by one step on a host batch (the mixed diet), and
+  ``--eval-host-batches N`` scores N host validation batches of 16 at each
+  eval (``val_host_*`` scalars).
+- Without it, the host pipeline: ``CharucoDataset`` in
+  ``--num-workers`` threads (``BatchLoader``, seed 0), copied to the card
+  ahead of the step (``device_prefetch``); eval batches come from the
+  seeded validation stream (batch j: samples 16j … 16j + 15).
 
-Run: ``python -m deepcharuco_tpu_torch.cli.train --device-synth [--device cpu]``.
+Every ``--eval-every`` dispatches the model is scored on ``--eval-batches``
+batches of 16 (on-card: batch j drawn from seed 777 + j) with
+``train.metrics.detector_metrics`` (the decode kernel on the card), the
+scalars logged and a top-k checkpoint written, named by the global step. A
+non-finite loss stops the run (checked every 100 dispatches). Not ported:
+more than one card (``--data-parallel`` with several cards,
+``--mesh-spatial``; ROADMAP.md §A, A7); ``--data-parallel`` on one card does
+nothing, as in the JAX trainer.
+
+Run: ``python -m deepcharuco_tpu_torch.cli.train [--device-synth] [--device cpu]``.
 """
 
 from __future__ import annotations
@@ -41,19 +51,20 @@ def build_argparser():
     p.add_argument("--ckpt-dir", default="checkpoints/deepcharuco")
     p.add_argument("--top-k", type=int, default=10)
     p.add_argument("--num-workers", type=int, default=None,
-                   help="host pipeline workers (unused on the --device-synth path)")
+                   help="host pipeline threads (default: the config's num_workers)")
     p.add_argument("--data-parallel", action="store_true",
                    help="shard the batch over the cards (one card: nothing to do)")
     p.add_argument("--mesh-spatial", type=int, default=1)
     p.add_argument("--device-synth", action="store_true",
-                   help="synthesise the training data on the card (the ported path)")
+                   help="synthesise the training data on the card (else the host pipeline)")
     p.add_argument("--fused-steps", type=int, default=1,
                    help="synthesis + train steps per dispatch")
     p.add_argument("--resume", default=None, help="checkpoint name to resume from")
     p.add_argument("--init-npz", default=None,
                    help="initialize the weights from a shipped .npz (fresh optimizer)")
-    p.add_argument("--images", default=None, help="background images (host pipeline)")
-    p.add_argument("--labels", default=None, help="COCO captions json (host pipeline)")
+    p.add_argument("--images", default=None,
+                   help="background image directory (host pipeline, bank; else procedural)")
+    p.add_argument("--labels", default=None, help="COCO captions json")
     p.add_argument("--conf-weight", type=float, default=0.0,
                    help="weight of the ids-head margin-calibration loss (0 = CE only)")
     p.add_argument("--conf-margin", type=float, default=4.0)
@@ -67,26 +78,33 @@ def build_argparser():
     p.add_argument("--scale-max", type=float, default=None)
     p.add_argument("--low-gain-p", type=float, default=0.0)
     p.add_argument("--low-gain-min", type=float, default=0.08)
-    p.add_argument("--bg-bank", type=int, default=0)
-    p.add_argument("--bg-bank-p", type=float, default=0.5)
-    p.add_argument("--mixed-host-every", type=int, default=0)
-    p.add_argument("--eval-host-batches", type=int, default=0)
+    p.add_argument("--bg-bank", type=int, default=0,
+                   help="with --device-synth: N gray backgrounds built on the host once")
+    p.add_argument("--bg-bank-p", type=float, default=0.5,
+                   help="probability a sample's background comes from the bank")
+    p.add_argument("--mixed-host-every", type=int, default=0,
+                   help="with --device-synth: every Nth dispatch trains on a host batch")
+    p.add_argument("--eval-host-batches", type=int, default=0,
+                   help="with --device-synth: also score N host validation batches per eval")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs the plain versions)")
     return p
 
 
 def refuse_unported(args, n_cards: int) -> None:
-    if not args.device_synth:
-        not_ported("training without --device-synth (the host data pipeline)", "A4")
-    if args.mixed_host_every > 0:
-        not_ported("--mixed-host-every (the mixed diet)", "A6")
-    if args.eval_host_batches > 0:
-        not_ported("--eval-host-batches (the host data pipeline)", "A4")
-    if args.bg_bank > 0:
-        not_ported("--bg-bank (the background bank builder)", "A5")
     if args.mesh_spatial > 1 or (args.data_parallel and n_cards > 1):
         not_ported("training across several cards (DDP)", "A7")
+
+
+def host_batch(dataset, start: int, n: int, device):
+    """Samples ``start`` … ``start + n − 1`` of a host dataset, stacked, as
+    (images, loc, ids) tensors on ``device``."""
+    import numpy as np
+    import torch
+
+    items = [dataset[start + k] for k in range(n)]
+    return tuple(torch.from_numpy(np.stack([it[key] for it in items])).to(device)
+                 for key in ("image", "loc", "ids"))
 
 
 def main(argv=None):
@@ -96,7 +114,8 @@ def main(argv=None):
 
     from deepcharuco_tpu_torch._device import resolve_device
     from deepcharuco_tpu_torch.configs import default_config, load_configuration
-    from deepcharuco_tpu_torch.data import DeviceSynthesizer
+    from deepcharuco_tpu_torch.data import (BatchLoader, CharucoDataset, DeviceSynthesizer,
+                                            device_prefetch, make_background_bank)
     from deepcharuco_tpu_torch.models import Detector
     from deepcharuco_tpu_torch.parallel import synth_scan_program
     from deepcharuco_tpu_torch.train import (create_detector_state, flax_init_,
@@ -123,57 +142,106 @@ def main(argv=None):
     if args.resume:
         print(resume(state, ckpts, args.resume))
 
-    synth = DeviceSynthesizer(
-        cfg, axis_snap_p=args.axis_snap_p,
-        scale_range=((0.25, args.scale_max) if args.scale_max else None),
-        perspective_p=args.perspective_p, low_gain_p=args.low_gain_p,
-        low_gain_min=args.low_gain_min, device=dev)
-    K = max(1, args.fused_steps)
-    program = synth_scan_program(
-        make_detector_train_step(conf_weight=args.conf_weight, conf_margin=args.conf_margin,
-                                 conf_topk=args.conf_topk, conf_fg_topk=args.conf_fg_topk),
-        lambda g: synth.batch(g, bs), fused_steps=K)
+    step_fn = make_detector_train_step(conf_weight=args.conf_weight,
+                                       conf_margin=args.conf_margin, conf_topk=args.conf_topk,
+                                       conf_fg_topk=args.conf_fg_topk)
+    workers = args.num_workers or cfg.num_workers
+    host = lambda validation=False: CharucoDataset(cfg, labels=args.labels,
+                                                   images_folder=args.images,
+                                                   validation=validation)
+    loader = host_feed = host_val_ds = val_ds = synth = None
+    if args.device_synth:
+        bank = None
+        if args.bg_bank > 0:
+            print(f"building {args.bg_bank}-image background bank...", flush=True)
+            bank = make_background_bank(args.bg_bank, labels=args.labels,
+                                        images_folder=args.images)
+        synth = DeviceSynthesizer(
+            cfg, axis_snap_p=args.axis_snap_p, bg_bank=bank, bg_bank_p=args.bg_bank_p,
+            scale_range=((0.25, args.scale_max) if args.scale_max else None),
+            perspective_p=args.perspective_p, low_gain_p=args.low_gain_p,
+            low_gain_min=args.low_gain_min, device=dev)
+        K = max(1, args.fused_steps)
+        program = synth_scan_program(step_fn, lambda g: synth.batch(g, bs), fused_steps=K)
+        feed = torch.Generator(device=dev).manual_seed(1234)
+        if args.eval_host_batches > 0:
+            host_val_ds = host(validation=True)
+        if args.mixed_host_every > 0:
+            loader = BatchLoader(host(), bs, num_workers=workers, seed=0)
+            host_feed = device_prefetch(loader, size=2, device=dev)
+            print(f"mixed diet: 1 host batch per {args.mixed_host_every} dispatches")
+        print(f"on-card synthesis: batch {bs}, {K} step(s) per dispatch, device {dev}")
+    else:
+        val_ds = host(validation=True)
+        loader = BatchLoader(host(), bs, num_workers=workers, seed=0)
+        host_feed = device_prefetch(loader, size=2, device=dev)
+        print(f"host pipeline: batch {bs}, {workers} threads, device {dev}")
     eval_fn = make_detector_eval_step()
-    feed = torch.Generator(device=dev).manual_seed(1234)
-    print(f"on-card synthesis: batch {bs}, {K} step(s) per dispatch, device {dev}")
+
+    def host_step(state):
+        b = next(host_feed)
+        return step_fn(state, b["image"], b["loc"], b["ids"])
 
     logger = ScalarLogger(args.logdir)
     acc = MeanAccumulator()
     t0 = time.time()
-    for i in range(args.steps):
-        state, aux = program(state, feed)
-        acc.update(train_loss=aux["loss"], train_loss_loc=aux["loss_loc"],
-                   train_loss_ids=aux["loss_ids"])
-        if (i + 1) % 100 == 0 and not math.isfinite(float(aux["loss"])):
-            print(f"FATAL: non-finite loss at step {i+1}; aborting", flush=True)
-            break
+    try:
+        for i in range(args.steps):
+            if synth is None or (host_feed is not None and (i + 1) % args.mixed_host_every == 0):
+                state, aux = host_step(state)
+            else:
+                state, aux = program(state, feed)
+            acc.update(train_loss=aux["loss"], train_loss_loc=aux["loss_loc"],
+                       train_loss_ids=aux["loss_ids"])
+            if (i + 1) % 100 == 0 and not math.isfinite(float(aux["loss"])):
+                print(f"FATAL: non-finite loss at step {i+1}; aborting", flush=True)
+                break
 
-        if (i + 1) % args.eval_every == 0:
-            train_scalars = acc.compute()
-            acc.reset()
-            ev = MeanAccumulator()
-            for j in range(args.eval_batches):
-                vi, vl, vd = synth.batch(torch.Generator(device=dev).manual_seed(777 + j), 16)
-                aux_v, out = eval_fn(state, vi, vl, vd)
-                m = detector_metrics(out["loc"], out["ids"], vl, vd, cfg.n_ids)
-                ev.update(val_loss=aux_v["loss"], val_loss_loc=aux_v["loss_loc"],
-                          val_loss_ids=aux_v["loss_ids"], val_l2_pixels=m["l2_pixels"],
-                          val_match_ratio=m["match_ratio"], val_n_pred=m["n_pred"],
-                          val_n_target=m["n_target"])
-            val_scalars = ev.compute()
-            # the window runs to here: the next one counts this log and save
-            sps = args.eval_every / (time.time() - t0)
-            t0 = time.time()
-            logger.log(i + 1, {**train_scalars, **val_scalars, "steps_per_sec": sps})
-            print(f"step {i+1}: train_loss={train_scalars['train_loss']:.4f} "
-                  f"val_loss={val_scalars['val_loss']:.4f} "
-                  f"val_l2={val_scalars['val_l2_pixels']:.2f}px "
-                  f"match={val_scalars['val_match_ratio']:.3f} "
-                  f"pred/tgt={val_scalars['val_n_pred']:.1f}/{val_scalars['val_n_target']:.1f} "
-                  f"({sps:.1f} steps/s)", flush=True)
-            # named by the global optimizer step, which a resume restores
-            ckpts.save(f"step_{state.step:07d}", state_variables(state),
-                       metric=val_scalars["val_loss"], optimizer=optimizer_arrays(state))
+            if (i + 1) % args.eval_every == 0:
+                train_scalars = acc.compute()
+                acc.reset()
+                ev = MeanAccumulator()
+                for j in range(args.eval_batches):
+                    if synth is not None:
+                        vi, vl, vd = synth.batch(torch.Generator(device=dev).manual_seed(777 + j),
+                                                 16)
+                    else:
+                        vi, vl, vd = host_batch(val_ds, j * 16, 16, dev)
+                    aux_v, out = eval_fn(state, vi, vl, vd)
+                    m = detector_metrics(out["loc"], out["ids"], vl, vd, cfg.n_ids)
+                    ev.update(val_loss=aux_v["loss"], val_loss_loc=aux_v["loss_loc"],
+                              val_loss_ids=aux_v["loss_ids"], val_l2_pixels=m["l2_pixels"],
+                              val_match_ratio=m["match_ratio"], val_n_pred=m["n_pred"],
+                              val_n_target=m["n_target"])
+                val_scalars = ev.compute()
+                if host_val_ds is not None:
+                    # the same weights on the host (reference-semantics) stream
+                    hv = MeanAccumulator()
+                    for j in range(args.eval_host_batches):
+                        vi, vl, vd = host_batch(host_val_ds, j * 16, 16, dev)
+                        aux_v, out = eval_fn(state, vi, vl, vd)
+                        m = detector_metrics(out["loc"], out["ids"], vl, vd, cfg.n_ids)
+                        hv.update(val_host_loss=aux_v["loss"], val_host_l2_pixels=m["l2_pixels"],
+                                  val_host_match_ratio=m["match_ratio"])
+                    val_scalars.update(hv.compute())
+                # the window runs to here: the next one counts this log and save
+                sps = args.eval_every / (time.time() - t0)
+                t0 = time.time()
+                logger.log(i + 1, {**train_scalars, **val_scalars, "steps_per_sec": sps})
+                print(f"step {i+1}: train_loss={train_scalars['train_loss']:.4f} "
+                      f"val_loss={val_scalars['val_loss']:.4f} "
+                      f"val_l2={val_scalars['val_l2_pixels']:.2f}px "
+                      f"match={val_scalars['val_match_ratio']:.3f} "
+                      f"pred/tgt={val_scalars['val_n_pred']:.1f}/{val_scalars['val_n_target']:.1f} "
+                      + (f"host_match={val_scalars['val_host_match_ratio']:.3f} "
+                         if "val_host_match_ratio" in val_scalars else "")
+                      + f"({sps:.1f} steps/s)", flush=True)
+                # named by the global optimizer step, which a resume restores
+                ckpts.save(f"step_{state.step:07d}", state_variables(state),
+                           metric=val_scalars["val_loss"], optimizer=optimizer_arrays(state))
+    finally:
+        if loader is not None:
+            loader.stop()
     logger.close()
     print(f"best checkpoint: {ckpts.best_checkpoint()}")
 

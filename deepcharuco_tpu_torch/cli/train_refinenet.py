@@ -1,4 +1,11 @@
-"""RefineNet training on the card (``deepcharuco_tpu.cli.train_refinenet``).
+"""RefineNet training (``deepcharuco_tpu.cli.train_refinenet``), on the card
+unless ``--device cpu``.
+
+Without ``--device-synth`` the host pipeline feeds it: ``RefineNetDataset``
+(frames at 2×, ``--total`` patches of 24×24 per image) in ``--num-workers``
+threads, ``max(1, batch // total)`` images per step flattened to patches,
+copied to the card ahead of the step; eval batches are 4 images of the
+seeded validation stream. ``--patch-size 32`` needs ``--device-synth``.
 
 The ``--device-synth`` path: patches are synthesised on the card from a
 ``torch.Generator`` seeded 4321 (the JAX trainer's feed key), either
@@ -10,10 +17,7 @@ of 32 patches, batch j from seed 888 + j, the heatmap MSE and
 ``refinenet_metric`` logged, a top-k checkpoint written under the global
 step. ``--fused-steps K`` runs K steps per dispatch.
 
-Not ported (``NotImplementedError``): training without ``--device-synth``
-(the host ``RefineNetDataset``, ROADMAP.md §A, A4).
-
-Run: ``python -m deepcharuco_tpu_torch.cli.train_refinenet --device-synth``.
+Run: ``python -m deepcharuco_tpu_torch.cli.train_refinenet [--device-synth]``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,6 @@ from __future__ import annotations
 import argparse
 import time
 
-from deepcharuco_tpu_torch.cli import not_ported
 
 
 def build_argparser():
@@ -44,7 +47,7 @@ def build_argparser():
     p.add_argument("--images", default=None)
     p.add_argument("--labels", default=None)
     p.add_argument("--device-synth", action="store_true",
-                   help="synthesise the patches on the card (the ported path)")
+                   help="synthesise the patches on the card (else the host pipeline)")
     p.add_argument("--frame-patches", action="store_true",
                    help="cut the patches from whole synthetic frames by the "
                         "inference gather")
@@ -71,12 +74,15 @@ def build_argparser():
 def main(argv=None):
     args = build_argparser().parse_args(argv)
 
+    import numpy as np
     import torch
 
     from deepcharuco_tpu_torch._device import resolve_device
     from deepcharuco_tpu_torch.configs import (default_config, load_configuration,
                                                scaled_config)
-    from deepcharuco_tpu_torch.data import DeviceRefineSynthesizer, FramePatchSynthesizer
+    from deepcharuco_tpu_torch.data import (BatchLoader, DeviceRefineSynthesizer,
+                                            FramePatchSynthesizer, RefineNetDataset,
+                                            device_prefetch)
     from deepcharuco_tpu_torch.models import RefineNet
     from deepcharuco_tpu_torch.parallel import synth_scan_program
     from deepcharuco_tpu_torch.pipeline import merge_variables
@@ -91,8 +97,9 @@ def main(argv=None):
                                                variables_from_npz)
 
     dev = resolve_device(args.device)
-    if not args.device_synth:
-        not_ported("training RefineNet without --device-synth (the host data pipeline)", "A4")
+    if args.patch_size != 24 and not args.device_synth:
+        raise SystemExit("--patch-size 32 requires --device-synth (the host "
+                         "RefineNetDataset emits reference-parity 24x24)")
     if args.frame_scale > 1 and not args.frame_patches:
         raise SystemExit("--frame-scale needs --frame-patches (the direct patch "
                          "sampler has no frame to scale)")
@@ -113,8 +120,24 @@ def main(argv=None):
     if args.resume:
         print(resume(state, ckpts, args.resume))
 
+    step_fn = make_refinenet_train_step(coord_weight=args.coord_weight,
+                                        offset_weight=args.offset_weight)
+    eval_fn = make_refinenet_eval_step(offset_weight=args.offset_weight)
     cont = not args.rounded_targets
-    if args.frame_patches:
+    synth = loader = host_feed = val_ds = None
+    if not args.device_synth:
+        n_images = max(1, bs // args.total)    # the reference's virtual batch
+        workers = args.num_workers or cfg.num_workers
+        host = lambda validation=False: RefineNetDataset(cfg, labels=args.labels,
+                                                         images_folder=args.images,
+                                                         validation=validation,
+                                                         total=args.total)
+        val_ds = host(validation=True)
+        loader = BatchLoader(host(), n_images, num_workers=workers, seed=0)
+        host_feed = device_prefetch(loader, size=2, device=dev)
+        print(f"host pipeline: {n_images} images x {args.total} patches per step, "
+              f"{workers} threads, device {dev}")
+    elif args.frame_patches:
         synth_cfg = scaled_config(cfg, args.frame_scale) if args.frame_scale > 1 else cfg
         jitter = (args.jitter_px if args.jitter_px is not None
                   else 3.0 if args.frame_scale == 1 else 2.0 * args.frame_scale)
@@ -125,41 +148,57 @@ def main(argv=None):
     else:
         synth = DeviceRefineSynthesizer(cfg, continuous_targets=cont,
                                         patch_size=args.patch_size, device=dev)
-    program = synth_scan_program(
-        make_refinenet_train_step(coord_weight=args.coord_weight,
-                                  offset_weight=args.offset_weight),
-        lambda g: synth.batch(g, bs), fused_steps=args.fused_steps)
-    eval_fn = make_refinenet_eval_step(offset_weight=args.offset_weight)
-    feed = torch.Generator(device=dev).manual_seed(4321)
-    print(f"on-card patch synthesis: {bs} patches per step, device {dev}")
+    if synth is not None:
+        program = synth_scan_program(step_fn, lambda g: synth.batch(g, bs),
+                                     fused_steps=args.fused_steps)
+        feed = torch.Generator(device=dev).manual_seed(4321)
+        print(f"on-card patch synthesis: {bs} patches per step, device {dev}")
+
+    def flatten(batch):
+        return (batch["patches"].reshape(-1, args.patch_size, args.patch_size, 1),
+                batch["heatmaps"].reshape(-1, 64, 64, 1))
+
+    def val_batch(j):
+        if synth is not None:
+            return synth.batch(torch.Generator(device=dev).manual_seed(888 + j), 32)
+        items = [val_ds[j * 4 + k] for k in range(4)]
+        return flatten({key: torch.from_numpy(np.stack([it[key] for it in items])).to(dev)
+                        for key in ("patches", "heatmaps")})
 
     logger = ScalarLogger(args.logdir)
     acc = MeanAccumulator()
     t0 = time.time()
-    for i in range(args.steps):
-        state, aux = program(state, feed)
-        acc.update(train_refinenet_loss=aux["loss"])
-        if (i + 1) % args.eval_every == 0:
-            train_scalars = acc.compute()
-            acc.reset()
-            ev = MeanAccumulator()
-            for j in range(args.eval_batches):
-                p, h = synth.batch(torch.Generator(device=dev).manual_seed(888 + j), 32)
-                aux_v, heat_hat = eval_fn(state, p, h)
-                ev.update(val_refinenet_loss=aux_v["loss"],
-                          val_dist_refinenet_pixels=refinenet_metric(heat_hat, h))
-            val_scalars = ev.compute()
-            # the window runs to here: the next one counts this log and save
-            sps = args.eval_every / (time.time() - t0)
-            t0 = time.time()
-            logger.log(i + 1, {**train_scalars, **val_scalars, "steps_per_sec": sps})
-            print(f"step {i+1}: loss={train_scalars['train_refinenet_loss']:.5f} "
-                  f"val={val_scalars['val_refinenet_loss']:.5f} "
-                  f"val_dist={val_scalars['val_dist_refinenet_pixels']:.2f}px(8x) "
-                  f"({sps:.1f} steps/s)", flush=True)
-            ckpts.save(f"step_{state.step:07d}", state_variables(state),
-                       metric=val_scalars["val_refinenet_loss"],
-                       optimizer=optimizer_arrays(state))
+    try:
+        for i in range(args.steps):
+            if synth is None:
+                state, aux = step_fn(state, *flatten(next(host_feed)))
+            else:
+                state, aux = program(state, feed)
+            acc.update(train_refinenet_loss=aux["loss"])
+            if (i + 1) % args.eval_every == 0:
+                train_scalars = acc.compute()
+                acc.reset()
+                ev = MeanAccumulator()
+                for j in range(args.eval_batches):
+                    p, h = val_batch(j)
+                    aux_v, heat_hat = eval_fn(state, p, h)
+                    ev.update(val_refinenet_loss=aux_v["loss"],
+                              val_dist_refinenet_pixels=refinenet_metric(heat_hat, h))
+                val_scalars = ev.compute()
+                # the window runs to here: the next one counts this log and save
+                sps = args.eval_every / (time.time() - t0)
+                t0 = time.time()
+                logger.log(i + 1, {**train_scalars, **val_scalars, "steps_per_sec": sps})
+                print(f"step {i+1}: loss={train_scalars['train_refinenet_loss']:.5f} "
+                      f"val={val_scalars['val_refinenet_loss']:.5f} "
+                      f"val_dist={val_scalars['val_dist_refinenet_pixels']:.2f}px(8x) "
+                      f"({sps:.1f} steps/s)", flush=True)
+                ckpts.save(f"step_{state.step:07d}", state_variables(state),
+                           metric=val_scalars["val_refinenet_loss"],
+                           optimizer=optimizer_arrays(state))
+    finally:
+        if loader is not None:
+            loader.stop()
     logger.close()
     print(f"best checkpoint: {ckpts.best_checkpoint()}")
 

@@ -580,3 +580,29 @@ def load_draws(arrays, prefix: str, device=None) -> Draws:
             node = node.setdefault(p, {})
         node[parts[-1]] = value.to(dev)
     return out
+
+
+def make_background_bank(n: int = 64, size_hw: Tuple[int, int] = (480, 640), seed: int = 0,
+                         labels=None, images_folder=None, use_native: bool = True):
+    """(n, H, W) float32 gray backgrounds for :class:`DeviceSynthesizer`'s
+    ``bg_bank``, built on the host once at set-up from the configured photo
+    source (COCO json, directory, else procedural: the order of
+    :func:`~deepcharuco_tpu_torch.data.sources.open_image_source`). Image
+    ``i`` is source image ``rng.integers(0, len(source))`` of a generator
+    seeded ``seed``, gray (cv2's fixed point) and, where its size differs,
+    shrunk or grown by INTER_AREA. This is how a real photo corpus reaches
+    the on-card synthesis: the bank crosses to the card once."""
+    import numpy as np
+
+    from deepcharuco_tpu_torch.data import cvnp
+    from deepcharuco_tpu_torch.data.sources import open_image_source
+
+    src = open_image_source(labels, images_folder, size_hw=size_hw, use_native=use_native)
+    rng = np.random.default_rng(seed)
+    out = np.zeros((n, *size_hw), np.float32)
+    for i in range(n):
+        gray = cvnp.bgr2gray(src.get(int(rng.integers(0, len(src)))))
+        if gray.shape != tuple(size_hw):
+            gray = cvnp.resize_area(gray, size_hw)
+        out[i] = gray.astype(np.float32)
+    return out

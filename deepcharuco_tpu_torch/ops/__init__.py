@@ -17,6 +17,7 @@ from deepcharuco_tpu_torch.ops.geom import (
     pred_to_keypoints_geom,
     reselect_by_homography,
 )
+from deepcharuco_tpu_torch.ops.heatmap import gaussian_heatmap
 from deepcharuco_tpu_torch.ops.patches import extract_patches
 
 __all__ = [
@@ -38,4 +39,5 @@ __all__ = [
     "pred_to_keypoints_geom",
     "reselect_by_homography",
     "extract_patches",
+    "gaussian_heatmap",
 ]

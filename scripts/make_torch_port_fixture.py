@@ -73,6 +73,15 @@ frames:
   their sub-pixel truth (``kpts``, ``visible``), ``--px-margin 3``:
   ``keypoints``, ``valid``, ``refined`` and ``n_target``, ``n_pred``,
   ``n_matched``, ``raw_mean``, ``refined_mean``.
+- ``host/...``: the JAX package's host pipeline (numpy + cv2, its native
+  core where ``native`` says so), seeded as its validation streams are (42):
+  ``host/det_{native,numpy}/{gray,loc,ids}``, the first 4 samples of
+  ``CharucoDataset(validation=True)`` (``gray`` = the normalised image
+  mapped back to uint8, exact), ``host/rn_{native,numpy}/{gray,corners}``,
+  the first 2 images of ``RefineNetDataset(validation=True)`` (8 patches
+  each as uint8 gray, and each heatmap's peak (x, y)), and ``host/bank``,
+  ``make_background_bank(8)`` as uint8. ``numpy`` is the route without the
+  native core (``_native`` switched off).
 
 Run from the repository root: ``python scripts/make_torch_port_fixture.py``.
 The file is regenerated only by this script.
@@ -363,6 +372,34 @@ def jax_eval(out: dict) -> dict:
             "eval/refined_mean": np.float64(d_ref.mean())}
 
 
+def host_samples() -> dict:
+    """The ``host/...`` keys (see the module docstring)."""
+    from deepcharuco_tpu.data import CharucoDataset, RefineNetDataset
+    from deepcharuco_tpu.data.device_synth import make_background_bank
+
+    cfg = default_config()
+    to_gray = lambda img: np.rint(img * 255.0 + 128.0).astype(np.uint8)[..., 0]
+    out = {}
+    for route in ("native", "numpy"):
+        det = CharucoDataset(cfg, validation=True)
+        rn = RefineNetDataset(cfg, validation=True)
+        if route == "numpy":
+            for ds in (det, rn):
+                ds.synth._native = None
+                ds.source._native = None
+        items = [det[i] for i in range(4)]
+        out[f"host/det_{route}/gray"] = np.stack([to_gray(it["image"]) for it in items])
+        for k in ("loc", "ids"):
+            out[f"host/det_{route}/{k}"] = np.stack([it[k] for it in items])
+        items = [rn[i] for i in range(2)]
+        out[f"host/rn_{route}/gray"] = np.stack([to_gray(it["patches"]) for it in items])
+        peaks = [[np.unravel_index(np.argmax(h[..., 0]), h.shape[:2])[::-1]
+                  for h in it["heatmaps"]] for it in items]
+        out[f"host/rn_{route}/corners"] = np.array(peaks, np.int32)
+    out["host/bank"] = make_background_bank(8).astype(np.uint8)
+    return out
+
+
 def main():
     x, x_hi = frames(), frames_hi()
     out = {"frames": x, "frames_hi": x_hi, "K": K, "K_hi": K_HI, "dist": DIST}
@@ -399,6 +436,7 @@ def main():
                      RefineNet(dtype=jnp.float32), variables_from_npz(RN), 1e-4, ("loss",))
     out.update(_flat(rn, "train/rn"))
     out.update(jax_eval(out))
+    out.update(host_samples())
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **out)
     print(OUT, os.path.getsize(OUT), "bytes;",

@@ -166,12 +166,6 @@ def test_eval_cli_on_the_cpu(small, capsys, flags):
     assert res["samples"] == 16 and res["n_target"] > 0
 
 
-def test_eval_refuses_the_host_stream(small):
-    _, base, _ = small
-    with pytest.raises(NotImplementedError, match="A4"):
-        eval_cli.main(base + ["--source", "host"])
-
-
 def jax_eval_forward(images):
     """``deepcharuco_tpu/cli/eval.py``'s forward (float32, hard decode)."""
     from deepcharuco_tpu.models import Detector, RefineNet

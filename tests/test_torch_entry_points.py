@@ -195,13 +195,7 @@ def roadmap_items():
 
 
 REFUSALS = [
-    ("train", [], "host data pipeline"),
-    ("train", ["--device-synth", "--eval-host-batches", "1"], "host data pipeline"),
-    ("train", ["--device-synth", "--bg-bank", "4"], "background bank"),
-    ("train", ["--device-synth", "--mixed-host-every", "2"], "mixed diet"),
     ("train", ["--device-synth", "--mesh-spatial", "2"], "data parallelism"),
-    ("train_refinenet", [], "host data pipeline"),
-    ("eval", ["--source", "host"], "host data pipeline"),
 ]
 
 

@@ -1,8 +1,9 @@
 """The port's two training CLIs on the CPU (``--device cpu``), on 64×96
 frames of the default board (a YAML config), for a couple of steps: the
 jsonl log and the top-k checkpoints are written, a checkpoint serves in
-``InferencePipeline``, ``--resume`` continues the global step, and the flags
-whose machinery is not ported raise ``NotImplementedError``."""
+``InferencePipeline``, ``--resume`` continues the global step, more than
+one card raises ``NotImplementedError`` and the options that need another
+one are refused."""
 
 import functools
 import json
@@ -94,10 +95,6 @@ def test_refinenet_cli_trains_and_checkpoints(small, variant):
 
 
 REFUSED = {
-    "host pipeline": [],
-    "mixed diet": ["--device-synth", "--mixed-host-every", "2"],
-    "host eval": ["--device-synth", "--eval-host-batches", "1"],
-    "bank builder": ["--device-synth", "--bg-bank", "4"],
     "several cards": ["--device-synth", "--mesh-spatial", "2"],
 }
 
@@ -111,8 +108,8 @@ def test_detector_cli_refuses_what_is_not_ported(small, case):
 
 def test_refinenet_cli_refusals(small):
     _, base = small
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rn_cli.main(base + ["--steps", "1"])
+    with pytest.raises(SystemExit, match="--patch-size 32 requires --device-synth"):
+        rn_cli.main(base + ["--patch-size", "32", "--steps", "1"])
     with pytest.raises(SystemExit):
         rn_cli.main(base + ["--device-synth", "--frame-scale", "2", "--steps", "1"])
 
