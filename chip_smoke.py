@@ -129,7 +129,23 @@ stopping at the first failure with a non-zero exit:
     samples/s of both datasets through ``BatchLoader`` at 1, 2, 4 and the
     config's threads, host-fed training steps/s beside on-card synthesis
     and the mixed diet, the card's idle share under host-fed training, and
-    a 64-image bank's build time.
+    a 64-image bank's build time;
+16. camera calibration and the grid viewer, with cv2 made unimportable:
+    ``cli.calib_intrinsics.charuco_calibrate`` (32-px RefineNet, ``avg``,
+    bf16, batch 16; the network on the card, B1 counted; the solver on the
+    host) on the fixture's 10 known-camera views (``calib/...``) against the
+    JAX CLI's stored result (the same views used, fx and fy within 0.2%, cx
+    and cy within 0.5 px, the mean reprojection error within 0.02 px) and
+    the true camera (fx, fy within 1.5%, cx, cy within 4 px), twice (the
+    second call warm), and on the low-light set (at least 9 views, fx, fy
+    within 1.5%, error under 0.6 px); the CLI itself with ``--charuco`` on
+    PNGs the port wrote (its ``camera_params.npz`` within 1e-6 of the
+    call's); the chessboard mode on the 5 stored boards and the 10 tilted
+    views (found on all, corners within 0.01 px of cv2's stored ones after
+    the 11×11 refinement, the tilted views' K within 3e-5 of fx of JAX's);
+    ``cli.view`` in its three modes, one page each, read back equal to the
+    grid drawn, the predictions page equal to ``detect`` drawn; detection
+    ms per view, solver ms, each CLI's wall time and B1's launches by path.
 
 Its last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with the kernels' numbers, and ``{"ok": true, "device": {...}}``. Imports
@@ -1976,6 +1992,215 @@ def phase_host(cfg, fix, dev):
     return out, launches
 
 
+# Phase 16: the card's --charuco calibration is held to the JAX CLI's stored
+# result (bf16 networks on both sides; the CPU route is within 0.031% of fx
+# and 0.09 px of cx/cy, tests/test_torch_calib.py) and to the true camera.
+CALIB_SHARE = 2e-3          # fx, fy against JAX's stored K, relative
+CALIB_C_PX = 0.5            # cx, cy against JAX's stored K, px
+CALIB_ERR_PX = 0.02         # mean reprojection error against JAX's, px
+CHESS_SUBPIX = 0.01         # chessboard corners against cv2's stored ones, px
+TILTED_SHARE = 3e-5         # chessboard K on the tilted views against JAX's, of fx
+
+
+def _true_camera_limits(tag, K, K_true):
+    """``tests/test_charuco_calib.py:138-141``: fx, fy within 1.5%, cx, cy
+    within 4 px of the camera that rendered the views."""
+    ok = all(abs(K[i, i] - K_true[i, i]) / K_true[i, i] < 0.015
+             and abs(K[i, 2] - K_true[i, 2]) < 4.0 for i in (0, 1))
+    require(ok, f"{tag}: K {K[[0, 1, 0, 1], [0, 1, 2, 2]]} outside the test's limits of "
+                f"the true camera")
+
+
+def phase_calib(cfg, fix, dev, tmp):
+    """The calibration CLI's ``--charuco`` core, the CLI itself on PNGs the
+    port wrote, and its chessboard mode, without cv2."""
+    from deepcharuco_tpu_torch import calib
+    from deepcharuco_tpu_torch.cli import calib_intrinsics as calib_cli
+    from deepcharuco_tpu_torch.data import cvnp, png
+    from deepcharuco_tpu_torch.ops import cuda_decode
+
+    out, launches = {}, {}
+    K_true = fix["calib/K_true"]
+    for name, key in (("clean", "calib/views"), ("clean again", "calib/views"),
+                      ("dark", "calib/dark")):
+        ref = name.split()[0]
+        cuda_decode.launches = 0
+        timings = {}
+        t0 = time.perf_counter()
+        K, dist, err, used = calib_cli.charuco_calibrate(
+            fix[key], cfg, DET, RN32, verbose=False, device=dev, timings=timings)
+        wall = time.perf_counter() - t0
+        launches[f"charuco_calibrate {name}"] = cuda_decode.launches
+        K_jax = fix[f"calib/{ref}/K"]
+        share = max(abs(K[i, i] - K_jax[i, i]) / K_jax[i, i] for i in (0, 1))
+        c_px = max(abs(K[i, 2] - K_jax[i, 2]) for i in (0, 1))
+        n = len(fix[key])
+        out[f"charuco {name}"] = {
+            "K": K[[0, 1, 0, 1], [0, 1, 2, 2]].tolist(), "dist": dist.ravel().tolist(),
+            "err_px": float(err), "views_used": int(used),
+            "jax_err_px": float(fix[f"calib/{ref}/err"]),
+            "jax_views_used": int(fix[f"calib/{ref}/used"]), "fxfy_share_vs_jax": float(share),
+            "cxcy_px_vs_jax": float(c_px), "detect_ms_per_view": 1e3 * timings["detect_s"] / n,
+            "solve_ms": 1e3 * timings["solve_s"], "wall_s": wall,
+            "b1_launches": cuda_decode.launches}
+        log(f"phase 16 charuco_calibrate ({name}, {n} views of {fix[key].shape[1]}x"
+            f"{fix[key].shape[2]}, 32-px RefineNet, avg, bf16, batch 16): {used} views, "
+            f"K {np.round(K[[0, 1, 0, 1], [0, 1, 2, 2]], 3).tolist()}, error {err:.4f} px "
+            f"(JAX {float(fix[f'calib/{ref}/err']):.4f} px, {int(fix[f'calib/{ref}/used'])} "
+            f"views); fx/fy {share:.2e} and cx/cy {c_px:.3f} px from JAX's K; detection "
+            f"{1e3 * timings['detect_s'] / n:.2f} ms per view, solver "
+            f"{1e3 * timings['solve_s']:.1f} ms, {wall:.2f} s in all; B1 launches "
+            f"{cuda_decode.launches}")
+        if dev.type == "cuda":
+            require(cuda_decode.launches >= 1, f"charuco_calibrate ({name}) did not launch B1")
+        if ref == "clean":
+            _true_camera_limits(f"charuco_calibrate ({name})", K, K_true)
+            require(used == int(fix["calib/clean/used"]), "views used differ from JAX's")
+            require(share <= CALIB_SHARE and c_px <= CALIB_C_PX,
+                    f"charuco_calibrate: K {share:.2e} / {c_px:.3f} px from JAX's")
+            require(abs(err - float(fix["calib/clean/err"])) <= CALIB_ERR_PX,
+                    "charuco_calibrate: reprojection error differs from JAX's")
+            K_clean = K
+        else:       # tests/test_charuco_calib.py:170-173
+            require(used >= 9 and err < 0.6 and all(
+                abs(K[i, i] - K_true[i, i]) / K_true[i, i] < 0.015 for i in (0, 1)),
+                f"low-light calibration: {used} views, error {err:.3f}, K {K}")
+
+    # the CLI on PNGs that the port wrote
+    views = os.path.join(tmp, "views")
+    os.makedirs(views)
+    for i, f in enumerate(fix["calib/views"]):
+        png.write_png(os.path.join(views, f"v_{i:03d}.png"), f)
+    cuda_decode.launches = 0
+    t0 = time.perf_counter()
+    calib_cli.main([views, "--charuco", "--deepc", DET, "--refinenet", RN32, "--out",
+                    os.path.join(tmp, "cam.npz")] + ([] if dev.type == "cuda" else
+                                                      ["--device", str(dev)]))
+    wall = time.perf_counter() - t0
+    launches["cli.calib_intrinsics --charuco"] = cuda_decode.launches
+    with np.load(os.path.join(tmp, "cam.npz")) as z:
+        K_cli = z["camera_matrix"]
+    gap = float(np.abs(K_cli - K_clean).max() / K_clean[0, 0])
+    log(f"phase 16 cli.calib_intrinsics --charuco on the port's PNGs: {wall:.2f} s; "
+        f"camera_params.npz K {gap:.2e} of fx from the charuco_calibrate call's "
+        f"(bit-equal: {gap == 0.0}); B1 launches {cuda_decode.launches}")
+    require(gap <= 1e-6, "the CLI's camera_params.npz differs from charuco_calibrate's")
+    out["cli charuco"] = {"wall_s": wall, "K_gap": gap, "b1_launches": cuda_decode.launches}
+
+    for name in ("chess", "tilted"):
+        frames = fix[f"calib/{name}/frames"]
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        worst, found = 0.0, 0
+        for i, (g, want) in enumerate(zip(frames, fix[f"calib/{name}/corners"])):
+            png.write_png(os.path.join(d, f"c_{i:03d}.png"), np.repeat(g[..., None], 3, -1))
+            ok, pts = calib.find_chessboard_corners(g, (9, 6))
+            found += ok
+            if ok:
+                got = cvnp.corner_sub_pix(g, pts, 11, 30, 0.001).reshape(-1, 2)
+                worst = max(worst, min(np.abs(got - want).max(),
+                                       np.abs(got[::-1] - want).max()))
+        t0 = time.perf_counter()
+        calib_cli.main([d, "--stride", "1", "--out", os.path.join(d, "cam.npz")]
+                       + ([] if dev.type == "cuda" else ["--device", str(dev)]))
+        wall = time.perf_counter() - t0
+        with np.load(os.path.join(d, "cam.npz")) as z:
+            K = z["camera_matrix"]
+        K_jax = fix[f"calib/{name}/K"]
+        gap = float(np.abs(K - K_jax).max() / K_jax[0, 0])
+        log(f"phase 16 cli.calib_intrinsics chessboard ({name}, {len(frames)} frames of "
+            f"480x640, no cv2): found on {found}/{len(frames)}, corners within "
+            f"{worst:.5f} px of cv2's, K {np.round(K[[0, 1, 0, 1], [0, 1, 2, 2]], 3).tolist()}"
+            f" ({gap:.2e} of JAX's fx from JAX's), {wall:.2f} s")
+        require(found == len(frames) and worst <= CHESS_SUBPIX,
+                f"chessboard ({name}): found {found}, corners {worst} px from cv2's")
+        if name == "tilted":
+            require(gap <= TILTED_SHARE, f"chessboard K {gap:.2e} of fx from JAX's")
+        out[f"cli chessboard {name}"] = {"wall_s": wall, "found": int(found),
+                                         "corner_px": float(worst), "K_gap_vs_jax": gap}
+    return out, launches
+
+
+def phase_view(cfg, dev, tmp):
+    """``cli.view`` in its three modes, one page each: the page read back
+    equals the grid drawn; the predictions page equals ``detect`` drawn."""
+    from deepcharuco_tpu_torch import board as B
+    from deepcharuco_tpu_torch.cli import view as view_cli
+    from deepcharuco_tpu_torch.data import CharucoDataset, png
+    from deepcharuco_tpu_torch.ops import cuda_decode
+    from deepcharuco_tpu_torch.pipeline import load_pipeline
+
+    out, launches = {}, {}
+    drawn = []
+    tile = view_cli._tile
+    view_cli._tile = lambda cells, cols: drawn.append(tile(cells, cols)) or drawn[-1]
+    try:
+        for what in ("dataset", "refine", "predictions"):
+            cuda_decode.launches = 0
+            t0 = time.perf_counter()
+            paths = view_cli.main(["--what", what, "--pages", "1", "--validation", "--deepc",
+                                   DET, "--refinenet", RN, "--out", os.path.join(tmp, what)]
+                                  + ([] if dev.type == "cuda" else ["--device", str(dev)]))
+            wall = time.perf_counter() - t0
+            page = png.read_png(paths[0])
+            same = np.array_equal(page, drawn[-1])
+            launches[f"cli.view {what}"] = cuda_decode.launches
+            out[what] = {"wall_s": wall, "page_shape": list(page.shape),
+                         "b1_launches": cuda_decode.launches}
+            log(f"phase 16 cli.view --what {what} (16 per page, no cv2): {wall:.2f} s per "
+                f"page, {page.shape[1]}x{page.shape[0]} page read back equal to the grid: "
+                f"{same}; B1 launches {cuda_decode.launches}")
+            require(same, f"cli.view {what}: the page read back differs from the grid drawn")
+    finally:
+        view_cli._tile = tile
+    if dev.type == "cuda":
+        require(launches["cli.view predictions"] >= 1, "cli.view predictions did not launch B1")
+    ds = CharucoDataset(cfg, validation=True)
+    samples = [ds[i] for i in range(16)]
+    frames = np.stack([view_cli._denorm(s["image"]) for s in samples])
+    pipe = load_pipeline(cfg, DET, RN, device=dev)
+    _, valid, refined = pipe.detect(frames)
+    cells = []
+    for img, s, v, r in zip(frames, samples, valid, refined):
+        kp, ok = view_cli._truth(s, cfg.n_ids)
+        img = B.draw_keypoints_with_validity(img, kp, ok, color=(0, 255, 0))
+        cells.append(B.draw_keypoints_with_validity(img, r, v, color=(255, 0, 255)))
+    same = np.array_equal(drawn[-1], view_cli._tile(cells, 4))
+    log(f"phase 16 cli.view predictions page equals detect on the same 16 frames, drawn: "
+        f"{same} ({int(valid.sum())} corners)")
+    require(same, "cli.view predictions: the page differs from detect's corners drawn")
+    return out, launches
+
+
+def phase_calib_view(cfg, fix, dev):
+    """16. Camera calibration and the grid viewer (no cv2 on the card's
+    machine); B1's launches on each path."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    log(f"phase 16 cv2 importable: {importlib.util.find_spec('cv2') is not None} (the phase "
+        "blocks it either way)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_calib_")
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = None           # the whole phase runs as if cv2 were not installed
+    try:
+        t0 = time.perf_counter()
+        calib_out, launches = phase_calib(cfg, fix, dev, tmp)
+        view_out, view_launches = phase_view(cfg, dev, tmp)
+        launches.update(view_launches)
+        out = {"calib": calib_out, "view": view_out, "b1_launches": launches,
+               "phase_s": time.perf_counter() - t0}
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 16 B1 launches by path: {launches}; {out['phase_s']:.1f} s")
+    return out, sum(launches.values())
+
+
 def main() -> int:
     import torch
 
@@ -2034,6 +2259,7 @@ def main() -> int:
                               max(no_pose["DeviceQueueServer"])),
         "hires": ("phase 9 hi-res ms/batch of 64", min(pose["hires"]["with_pose_ms"]))})
     host, host_launches = phase_host(cfg, fix, dev)
+    calib_view, calib_launches = phase_calib_view(cfg, fix, dev)
     for i, row in enumerate(rows):
         row["launches_pose_path"] = pose_launches[row["name"]]
         row["launches_int8_path"] = int8_launches if row["name"] == "decode" else 0
@@ -2041,10 +2267,11 @@ def main() -> int:
         row["launches_train_eval"] = train_launches if row["name"] == "decode" else 0
         row["launches_entry_points"] = entry_launches[row["name"]]
         row["launches_host_paths"] = host_launches if row["name"] == "decode" else 0
+        row["launches_calib_view_paths"] = calib_launches if row["name"] == "decode" else 0
     log(json.dumps({"serve": serve, "fused_mismatch": fused_rates, "yardsticks": yard,
                     "build_s": build_s, "pose": pose, "geom": geom, "int8": int8,
                     "streams": streams, "train": train, "entry_points": entry,
-                    "host": host}))
+                    "host": host, "calib_view": calib_view}))
     log(smi())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -276,8 +276,11 @@ def cv2_aruco_detect(image, dictionary, board, parameters):
 def draw_inner_corners(img, corners, ids, draw_ids: bool = False, radius: int = 2,
                        color=(0, 0, 255)):
     """Corner circles (+ optional green id labels) on a copy of a BGR image;
-    points past the bottom/right edge are dropped."""
-    cv2 = _cv2()
+    points past the bottom/right edge are dropped. The circles are
+    ``cvnp.circle`` (cv2's one-pixel circle, bit-equal), so only the id
+    labels (``cv2.putText``) need cv2."""
+    from deepcharuco_tpu_torch.data import cvnp
+
     if img.ndim != 3 or img.shape[-1] != 3:
         raise ValueError(f"expected a BGR image (H, W, 3), got shape {img.shape}")
     canvas = img.copy()
@@ -285,8 +288,9 @@ def draw_inner_corners(img, corners, ids, draw_ids: bool = False, radius: int = 
     labels = np.asarray(ids)
     keep = (pts[:, 0] <= img.shape[1]) & (pts[:, 1] <= img.shape[0])
     for x, y in pts[keep]:
-        cv2.circle(canvas, (int(x), int(y)), radius=radius, color=color, thickness=1)
+        cvnp.circle(canvas, (int(x), int(y)), radius, color)
     if draw_ids:
+        cv2 = _cv2()
         font = cv2.FONT_HERSHEY_COMPLEX_SMALL
         for (x, y), idx in zip(pts[keep], labels[keep]):
             text = str(idx)

@@ -1,13 +1,18 @@
 """Command-line entry points of the port (``python -m
 deepcharuco_tpu_torch.cli.<name>``): ``train``, ``train_refinenet``,
-``benchmark``, ``infer``, ``eval``, ``pose_video``. Each runs on the card
-unless ``--device cpu`` is given. Frames come from image files through cv2
-or from a ``.npy``/``.npz`` file of uint8 frames, which needs no cv2."""
+``benchmark``, ``infer``, ``eval``, ``pose_video``, ``quantize``,
+``calib_intrinsics`` (camera intrinsics from ChArUco views through the
+network, or from a chessboard) and ``view`` (contact sheets of the training
+streams and of predictions). Each runs on the card unless ``--device cpu``
+is given. Frames come from ``.png`` files (the port's own decoder), from
+other image files through cv2, or from a ``.npy``/``.npz`` file of uint8
+frames; only the other image formats need cv2."""
 
 from __future__ import annotations
 
 import glob
 import os
+import zlib
 from typing import List, Tuple
 
 import numpy as np
@@ -49,9 +54,23 @@ def load_frame_array(path: str) -> np.ndarray:
     return arr
 
 
+def imread(path: str):
+    """``cv2.imread(path)``: a BGR uint8 frame, or None when the file cannot
+    be read. ``.png`` through the port's decoder, other formats through cv2."""
+    if path.lower().endswith(".png"):
+        from deepcharuco_tpu_torch.data import png
+
+        try:
+            return png.read_png(path)
+        except (OSError, ValueError, zlib.error):
+            return None
+    return need_cv2(f"reading the image {os.path.basename(path)}").imread(path)
+
+
 def read_frames(patterns: List[str]) -> List[Tuple[str, np.ndarray]]:
-    """(name, uint8 frame) pairs from image paths/globs (cv2) and frame
-    array files (numpy); unreadable images are reported and skipped."""
+    """(name, uint8 frame) pairs from image paths/globs (``.png`` without
+    cv2, other formats through cv2) and frame array files (numpy);
+    unreadable images are reported and skipped."""
     out = []
     for pattern in patterns:
         for path in sorted(glob.glob(pattern)) or [pattern]:
@@ -59,7 +78,7 @@ def read_frames(patterns: List[str]) -> List[Tuple[str, np.ndarray]]:
                 frames = load_frame_array(path)
                 out += [(f"{path}[{i}]", f) for i, f in enumerate(frames)]
                 continue
-            img = need_cv2(f"reading the image {os.path.basename(path)}").imread(path)
+            img = imread(path)
             if img is None:
                 print(f"skipping unreadable {path}")
                 continue

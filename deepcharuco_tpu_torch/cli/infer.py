@@ -3,9 +3,9 @@
 Prints, per frame, the number of corners and the ``(x, y, id)`` rows of the
 refined corners in the frame's own pixels. ``--out-dir`` draws the raw (red)
 and refined (yellow) corners and ``--cv2-baseline`` puts the classical
-cv2.aruco detection beside them; both need cv2, as do image files. Frames
-may also come as a ``.npy``/``.npz`` file of uint8 frames, which needs no
-cv2. :func:`infer_frames` is the core.
+cv2.aruco detection beside them; both need cv2, as do image files other
+than ``.png``. Frames may also come as a ``.npy``/``.npz`` file of uint8
+frames, which needs no cv2. :func:`infer_frames` is the core.
 
 Run: ``python -m deepcharuco_tpu_torch.cli.infer frames.npy [--device cpu]``.
 """
@@ -19,7 +19,8 @@ import os
 def build_argparser():
     p = argparse.ArgumentParser(description="DeepCharuco inference")
     p.add_argument("images", nargs="+",
-                   help="image files or globs (cv2), or .npy/.npz files of uint8 frames")
+                   help="image files or globs (.png without cv2, other formats through cv2), "
+                        "or .npy/.npz files of uint8 frames")
     p.add_argument("--config", default=None)
     p.add_argument("--deepc", default=None,
                    help="detector weights (.ckpt, .npz or a checkpoint directory)")

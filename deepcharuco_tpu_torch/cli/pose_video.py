@@ -6,10 +6,10 @@ can be made robust (``--ransac``: the port's ``pnp.ransac``, subsets drawn
 from a ``torch.Generator`` seeded 0) and smoothed over time (``--smooth``:
 ``pose_filter.PoseFilter``). The frames, corners and axes are then drawn
 and written as an mp4, beside the classical cv2.aruco estimate with
-``--cv2-baseline``; drawing, the mp4 and ``*.png`` frame directories need
-cv2. Frames may also come as a ``.npy``/``.npz`` file of uint8 frames, and
-``--no-video`` prints each frame's pose instead of drawing: that path needs
-no cv2. :func:`estimate` is the core.
+``--cv2-baseline``; drawing and the mp4 need cv2. Frames come from a
+directory of ``*.png`` files (the port's own decoder) or a ``.npy``/``.npz``
+file of uint8 frames, and ``--no-video`` prints each frame's pose instead of
+drawing: that path needs no cv2. :func:`estimate` is the core.
 
 Run: ``python -m deepcharuco_tpu_torch.cli.pose_video frames_dir [--device cpu]``.
 """
@@ -24,7 +24,7 @@ import os
 def build_argparser():
     p = argparse.ArgumentParser(description="Board pose over a frame directory")
     p.add_argument("input_dir",
-                   help="directory of *.png frames (cv2), or a .npy/.npz file of uint8 frames")
+                   help="directory of *.png frames, or a .npy/.npz file of uint8 frames")
     p.add_argument("--config", default=None)
     p.add_argument("--deepc", default=None)
     p.add_argument("--refinenet", default=None)
@@ -111,6 +111,7 @@ def main(argv=None):
     from deepcharuco_tpu_torch import board as B
     from deepcharuco_tpu_torch.cli import is_array_file, load_frame_array, need_cv2
     from deepcharuco_tpu_torch.configs import default_config, load_configuration
+    from deepcharuco_tpu_torch.data import png
     from deepcharuco_tpu_torch.pipeline import Camera, load_pipeline
     from deepcharuco_tpu_torch.pose_filter import PoseFilter
 
@@ -124,11 +125,10 @@ def main(argv=None):
         n_total = len(all_frames)
         out_dir = os.path.dirname(os.path.abspath(args.input_dir))
     else:
-        cv2 = need_cv2("reading *.png frames")
         paths = sorted(glob.glob(os.path.join(args.input_dir, "*.png")))
         if not paths:
             raise SystemExit(f"no *.png frames under {args.input_dir}")
-        chunks = (np.stack([cv2.imread(p) for p in paths[i:i + args.batch]])
+        chunks = (np.stack([png.read_png(p) for p in paths[i:i + args.batch]])
                   for i in range(0, len(paths), args.batch))
         n_total = len(paths)
         out_dir = args.input_dir

@@ -10,7 +10,11 @@ how close it comes to cv2 5.0.0 as built with Intel IPP 2026.0.0
 
 - ``cvtColor`` BGR→GRAY, BGR↔HSV, ``flip``, ``warpAffine`` (linear and
   nearest, constant border 0, 1 or 3 channels), ``resize`` INTER_AREA at an
-  integer factor, ``GaussianBlur``, ``circle``: bit-equal.
+  integer factor, INTER_NEAREST, ``GaussianBlur``, ``circle`` (filled, and
+  one pixel wide), ``applyColorMap`` (viridis): bit-equal.
+- ``resize`` INTER_LINEAR of uint8 images: OpenCV's 11-bit fixed point with
+  its vector code's rounding; bit-equal on every shape the tests try (cv2
+  does not hand it to IPP).
 - ``resize`` INTER_CUBIC: bit-equal to OpenCV's own code; cv2 hands uint8
   cubic resizes to IPP, which differs from it by one level on a few values
   in a million (``PERF.md`` §6 gives the measured share).
@@ -22,12 +26,13 @@ how close it comes to cv2 5.0.0 as built with Intel IPP 2026.0.0
 - ``resize`` INTER_LINEAR of float32 images: within 1e-4.
 
 All functions take and return numpy arrays in cv2's layout (H, W[, C]) and
-never modify their inputs, but :func:`circle_filled`, which draws in place
-as ``cv2.circle`` does.
+never modify their inputs, but :func:`circle_filled` and :func:`circle`,
+which draw in place as ``cv2.circle`` does.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -381,6 +386,60 @@ def resize_linear_f32(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
     return rows[y0] * (1 - fy) + rows[y1] * fy
 
 
+def resize_nearest(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (W, H), interpolation=cv2.INTER_NEAREST)``: source
+    index ``floor(d · (1 / (dsize / ssize)))`` in double, clamped; bit-equal."""
+    def taps(ssize, dsize):
+        ifx = 1.0 / (dsize / ssize)
+        return np.minimum(np.floor(np.arange(dsize) * ifx).astype(np.int64), ssize - 1)
+
+    return np.ascontiguousarray(img[taps(img.shape[0], size_hw[0])][:, taps(img.shape[1],
+                                                                            size_hw[1])])
+
+
+def _linear_taps_fixed(ssize: int, dsize: int, clamp: bool):
+    """OpenCV's INTER_LINEAR taps along one axis for 8-bit images: the
+    float32 source position ``(d + 0.5)·scale − 0.5`` and the weights ``1 −
+    f`` and ``f`` rounded to 11 bits. Along x (``clamp``) a position past
+    either border takes the border pixel whole; along y OpenCV keeps the
+    weights and clips only the two source rows."""
+    scale = 1.0 / (dsize / ssize)
+    fx = ((np.arange(dsize) + 0.5) * scale - 0.5).astype(f32)
+    sx = np.floor(fx).astype(np.int64)
+    fx = (fx - sx.astype(f32)).astype(f32)
+    if clamp:
+        fx[(sx < 0) | (sx >= ssize - 1)] = 0
+        sx = np.clip(sx, 0, ssize - 1)
+    scale_c = f32(1 << _RESIZE_BITS)
+    a0 = np.rint((f32(1) - fx) * scale_c).astype(np.int64)
+    a1 = np.rint(fx * scale_c).astype(np.int64)
+    return np.clip(sx, 0, ssize - 1), np.clip(sx + 1, 0, ssize - 1), a0, a1
+
+
+def resize_linear_u8(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (W, H))`` (INTER_LINEAR) on a uint8 image: exact
+    integer rows with 11-bit weights, then OpenCV's vertical blend as its
+    vector code rounds it, ``((b0·(S0 >> 4)) >> 16 + (b1·(S1 >> 4)) >> 16 +
+    2) >> 2`` (cv2 5.0.0 takes it for every column, the tail of a row too).
+    An exact halving in both axes is INTER_AREA's 2 × 2 mean, as OpenCV
+    routes it. Bit-equal to cv2 on every shape the tests try."""
+    img = np.asarray(img)
+    H, W = size_hw
+    src = img.astype(np.int64)
+    if img.shape[0] == 2 * H and img.shape[1] == 2 * W:
+        s = src[0::2, 0::2] + src[1::2, 0::2] + src[0::2, 1::2] + src[1::2, 1::2]
+        return ((s + 2) >> 2).astype(np.uint8)
+    x0, x1, a0, a1 = _linear_taps_fixed(img.shape[1], W, clamp=True)
+    y0, y1, b0, b1 = _linear_taps_fixed(img.shape[0], H, clamp=False)
+    cshape = (1, -1) + (1,) * (img.ndim - 2)
+    rows = src[:, x0] * a0.reshape(cshape) + src[:, x1] * a1.reshape(cshape)   # (h, W[, C])
+    s0 = rows[y0].reshape(H, -1)
+    s1 = rows[y1].reshape(H, -1)
+    b0, b1 = b0[:, None], b1[:, None]
+    out = (((b0 * (s0 >> 4)) >> 16) + ((b1 * (s1 >> 4)) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8).reshape((H, W) + img.shape[2:])
+
+
 # ---------------------------------------------------------------------------
 # Filters
 # ---------------------------------------------------------------------------
@@ -476,13 +535,17 @@ def get_rect_sub_pix(img: np.ndarray, size_wh: Tuple[int, int],
             + win[1:, :-1] * ((one - a) * b) + win[1:, 1:] * (a * b)).astype(f32)
 
 
-def corner_sub_pix(gray: np.ndarray, point_xy: Sequence[float], win: int,
-                   max_iter: int = 30, eps: float = 0.1) -> np.ndarray:
-    """``cv2.cornerSubPix(gray, pts, (win, win), (-1, -1), (EPS + COUNT,
-    max_iter, eps))`` for one point on a uint8 gray image: OpenCV's
-    iteration (Gaussian window weights, gradients of the float32
-    ``getRectSubPix`` patch, the 2×2 solve in double, the point kept when
-    it moves more than ``win``); within 1e-3 px. (2,) float32."""
+def corner_sub_pix(gray: np.ndarray, points, win: int, max_iter: int = 30,
+                   eps: float = 0.1) -> np.ndarray:
+    """``cv2.cornerSubPix(gray, points, (win, win), (-1, -1), (EPS + COUNT,
+    max_iter, eps))`` on a uint8 gray image, for one point (2,) or many
+    (..., 2), each on its own: OpenCV's iteration (Gaussian window weights,
+    gradients of the float32 ``getRectSubPix`` patch, the 2×2 solve in
+    double, a point kept where it moves more than ``win``); within 1e-3 px.
+    float32, the shape of ``points``. The points go one at a time: most
+    calls hold one, and on a few points numpy's calls on scalars and small
+    windows cost less than on batched arrays."""
+    pts = np.asarray(points, f32).reshape(-1, 2)
     ww = 2 * win + 1
     t = (np.arange(ww, dtype=f32) - f32(win)) / f32(win)
     g = np.exp(-(t * t)).astype(f32)
@@ -490,30 +553,32 @@ def corner_sub_pix(gray: np.ndarray, point_xy: Sequence[float], win: int,
     p = (np.arange(ww) - win).astype(np.float64)
     px, py = p[None, :], p[:, None]
     h, w = gray.shape[:2]
-    start = np.asarray(point_xy, f32).reshape(2)
-    cx, cy = start[0], start[1]
     eps2 = max(eps, 0.0) ** 2
-    for _ in range(max(1, min(max_iter, 100))):
-        sub = get_rect_sub_pix(gray, (ww + 2, ww + 2), (cx, cy))
-        gx = (sub[1:-1, 2:] - sub[1:-1, :-2]).astype(np.float64)
-        gy = (sub[2:, 1:-1] - sub[:-2, 1:-1]).astype(np.float64)
-        gxx, gxy, gyy = gx * gx * mask, gx * gy * mask, gy * gy * mask
-        a, b, c = gxx.sum(), gxy.sum(), gyy.sum()
-        bb1 = (gxx * px + gxy * py).sum()
-        bb2 = (gxy * px + gyy * py).sum()
-        det = a * c - b * b
-        if abs(det) <= np.finfo(np.float64).eps ** 2:
-            break
-        scale = 1.0 / det
-        nx = f32(float(cx) + c * scale * bb1 - b * scale * bb2)
-        ny = f32(float(cy) - b * scale * bb1 + a * scale * bb2)
-        err = (float(nx) - float(cx)) ** 2 + (float(ny) - float(cy)) ** 2
-        cx, cy = nx, ny
-        if cx < 0 or cx >= w or cy < 0 or cy >= h or err <= eps2:
-            break
-    if abs(cx - start[0]) > win or abs(cy - start[1]) > win:
-        cx, cy = start
-    return np.array([cx, cy], f32)
+    out = np.empty_like(pts)
+    for k, start in enumerate(pts):
+        cx, cy = start[0], start[1]
+        for _ in range(max(1, min(max_iter, 100))):
+            sub = get_rect_sub_pix(gray, (ww + 2, ww + 2), (cx, cy))
+            gx = (sub[1:-1, 2:] - sub[1:-1, :-2]).astype(np.float64)
+            gy = (sub[2:, 1:-1] - sub[:-2, 1:-1]).astype(np.float64)
+            gxx, gxy, gyy = gx * gx * mask, gx * gy * mask, gy * gy * mask
+            a, b, c = gxx.sum(), gxy.sum(), gyy.sum()
+            bb1 = (gxx * px + gxy * py).sum()
+            bb2 = (gxy * px + gyy * py).sum()
+            det = a * c - b * b
+            if abs(det) <= np.finfo(np.float64).eps ** 2:
+                break
+            scale = 1.0 / det
+            nx = f32(float(cx) + c * scale * bb1 - b * scale * bb2)
+            ny = f32(float(cy) - b * scale * bb1 + a * scale * bb2)
+            err = (float(nx) - float(cx)) ** 2 + (float(ny) - float(cy)) ** 2
+            cx, cy = nx, ny
+            if cx < 0 or cx >= w or cy < 0 or cy >= h or err <= eps2:
+                break
+        if abs(cx - start[0]) > win or abs(cy - start[1]) > win:
+            cx, cy = start
+        out[k] = cx, cy
+    return out.reshape(np.shape(points))
 
 
 # ---------------------------------------------------------------------------
@@ -557,3 +622,49 @@ def circle_filled(img: np.ndarray, center: Tuple[int, int], radius: int,
     for y, (x1, x2) in spans.items():
         img[y, x1:x2 + 1] = value
     return img
+
+
+def circle(img: np.ndarray, center: Tuple[int, int], radius: int,
+           color: Sequence[float]) -> np.ndarray:
+    """``cv2.circle(img, center, radius, color, thickness=1)`` (LINE_8, no
+    shift): OpenCV's midpoint walk, eight points a step, each dropped
+    outside the image. Draws in place and returns ``img``; bit-equal."""
+    h, w = img.shape[:2]
+    cx, cy = int(center[0]), int(center[1])
+    color = np.asarray(color, np.float64)[: (img.shape[2] if img.ndim == 3 else 1)]
+    value = _round_u8(color) if img.ndim == 3 else _round_u8(color)[0]
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    pts = []
+    while dx >= dy:
+        pts += [(cx - dx, cy - dy), (cx + dx, cy - dy), (cx - dx, cy + dy), (cx + dx, cy + dy),
+                (cx - dy, cy - dx), (cx + dy, cy - dx), (cx - dy, cy + dx), (cx + dy, cy + dx)]
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (1 if err <= 0 else 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    xy = np.array(pts)
+    keep = (xy[:, 0] >= 0) & (xy[:, 0] < w) & (xy[:, 1] >= 0) & (xy[:, 1] < h)
+    img[xy[keep, 1], xy[keep, 0]] = value
+    return img
+
+
+VIRIDIS_ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "assets", "viridis.npz")
+
+
+def apply_colormap(gray: np.ndarray, name: str = "viridis") -> np.ndarray:
+    """``cv2.applyColorMap(gray, cv2.COLORMAP_VIRIDIS)`` on a uint8 gray
+    image: cv2's 256-entry BGR table, dumped into the asset by
+    ``scripts/make_torch_port_colormap.py``; bit-equal. Viridis is the one
+    map stored. (H, W, 3) uint8."""
+    if name != "viridis":
+        raise KeyError(f"colormap {name!r}: only viridis is stored ({VIRIDIS_ASSET})")
+    with np.load(VIRIDIS_ASSET) as z:
+        lut = z["bgr"]
+    gray = np.asarray(gray)
+    if gray.dtype != np.uint8 or gray.ndim != 2:
+        raise ValueError(f"expected a uint8 (H, W) image, got {gray.dtype} {gray.shape}")
+    return lut[gray]

@@ -2,9 +2,10 @@
 
 The reference indexes COCO through a captions json's ``images`` list and
 reads each file with cv2 (``src/data.py:60-69``). That format and a plain
-directory are read here too; photo files go through cv2 where it can be
-imported (there is no other decoder; without cv2 the read raises
-``SystemExit`` naming it). The procedural source needs no files and no cv2:
+directory are read here too; ``.png`` files go through the port's own
+decoder (:mod:`~deepcharuco_tpu_torch.data.png`, equal to cv2's read), other
+photo formats through cv2 where it can be imported (without cv2 their read
+raises ``SystemExit`` naming it). The procedural source needs no files and no cv2:
 it runs on the native core by default, or on numpy and
 :mod:`~deepcharuco_tpu_torch.data.cvnp` with ``use_native=False``.
 """
@@ -21,10 +22,9 @@ from deepcharuco_tpu_torch.data import cvnp
 
 
 def _imread(path: str) -> np.ndarray:
-    from deepcharuco_tpu_torch.cli import need_cv2
+    from deepcharuco_tpu_torch.cli import imread
 
-    cv2 = need_cv2(f"reading the photo {os.path.basename(path)}")
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    img = imread(path)
     if img is None:
         raise IOError(f"unreadable image: {path}")
     return img

@@ -82,9 +82,27 @@ frames:
   each as uint8 gray, and each heatmap's peak (x, y)), and ``host/bank``,
   ``make_background_bank(8)`` as uint8. ``numpy`` is the route without the
   native core (``_native`` switched off).
+- ``calib/...``: camera calibration. ``calib/views`` the 10 uint8 gray
+  240×320 views of a known camera (``tests/test_charuco_calib.py::
+  _known_camera_views``), ``calib/dark`` the low-light set made from them
+  (blur, 0.25× gain, noise; ``test_charuco_calib.py:158-165``),
+  ``calib/K_true`` that camera; ``calib/{clean,dark}/{K,dist,err,used}``
+  the JAX package's ``charuco_calibrate`` on each set with the CLI's
+  defaults (bf16, ``refinenet32_devsynth.npz``, ``avg``). ``calib/chess/
+  frames`` the 5 uint8 gray 480×640 chessboard frames of
+  ``tests/test_cli.py::test_calib_cli``, ``calib/chess/corners`` cv2's
+  ``findChessboardCorners`` (9×6, the JAX CLI's flags) refined by
+  ``cornerSubPix`` (11×11, 30 iterations, 0.001) on each, (5, 54, 2)
+  float32, and ``calib/chess/{K,dist}`` the JAX CLI's chessboard mode on
+  those frames written as PNGs (5 near-frontal views under the full
+  distortion model do not determine the camera: cv2's own K moves with its
+  iteration budget). ``calib/tilted/...``: the same for 10 views of that
+  chessboard under the tilts of ``_known_camera_views`` (480×640, a camera
+  of f = 600 px at the centre, ``calib/tilted/K_true``), which do.
 
-Run from the repository root: ``python scripts/make_torch_port_fixture.py``.
-The file is regenerated only by this script.
+Run from the repository root: ``python scripts/make_torch_port_fixture.py``
+(``--only calib`` recomputes the ``calib/...`` keys into the existing
+file, about a minute). The file is regenerated only by this script.
 """
 
 from __future__ import annotations
@@ -400,7 +418,123 @@ def host_samples() -> dict:
     return out
 
 
-def main():
+def chessboard_frames() -> np.ndarray:
+    """The 5 chessboard views of ``tests/test_cli.py::test_calib_cli``
+    (uint8 gray 480×640; the test writes them as BGR with equal channels)."""
+    import cv2
+
+    cols, rows, sq = 9, 6, 40
+    board = np.zeros(((rows + 1) * sq, (cols + 1) * sq), np.uint8)
+    for r in range(rows + 1):
+        for c in range(cols + 1):
+            if (r + c) % 2 == 0:
+                board[r * sq:(r + 1) * sq, c * sq:(c + 1) * sq] = 255
+    h, w = 480, 640
+    out = []
+    for dx, dy, s in [(0, 0, 0.9), (30, 10, 0.8), (-20, 25, 1.0), (10, -15, 0.85),
+                      (-30, -10, 0.95)]:
+        src = np.float32([[0, 0], [board.shape[1], 0],
+                          [board.shape[1], board.shape[0]], [0, board.shape[0]]])
+        bw, bh = board.shape[1] * s * 0.9, board.shape[0] * s * 0.9
+        x0, y0 = (w - bw) / 2 + dx, (h - bh) / 2 + dy
+        dst = np.float32([[x0, y0], [x0 + bw, y0 + 10 * s],
+                          [x0 + bw - 15, y0 + bh], [x0 + 5, y0 + bh - 10 * s]])
+        M = cv2.getPerspectiveTransform(src, dst)
+        out.append(cv2.warpPerspective(board, M, (w, h), borderValue=128))
+    return np.stack(out)
+
+
+def tilted_chessboard_frames():
+    """10 views of the 9×6 chessboard through a known camera (480×640, f =
+    600 px), under the tilts of ``tests/test_charuco_calib.py::POSES``; gray
+    128 around the board. → (frames (10, 480, 640) uint8, K)."""
+    import cv2
+    from test_charuco_calib import POSES, _rot
+
+    sq = 40
+    board = np.kron((np.add.outer(np.arange(7), np.arange(10)) % 2 == 0) * 255,
+                    np.ones((sq, sq))).astype(np.uint8)
+    K_ = np.array([[600.0, 0.0, 320.0], [0.0, 600.0, 240.0], [0.0, 0.0, 1.0]])
+    side = 0.02                                   # metres per square
+    S = np.diag([side / sq, side / sq, 1.0])
+    center = np.array([side * 5, side * 3.5, 0.0])
+    out = []
+    for rx, ry, rz in POSES:
+        R = _rot(rx, ry, rz)
+        t = np.array([0.0, 0.0, 0.42]) - R @ center
+        M = K_ @ np.column_stack([R[:, 0], R[:, 1], t]) @ S
+        out.append(cv2.warpPerspective(board, M, (640, 480), flags=cv2.INTER_LINEAR,
+                                       borderValue=128))
+    return np.stack(out), K_
+
+
+def _cv2_chessboard(frames) -> dict:
+    """cv2's corners (the JAX CLI's flags and refinement) on each frame and
+    the JAX CLI's chessboard calibration on the frames as PNGs."""
+    import tempfile
+
+    import cv2
+
+    from deepcharuco_tpu.cli import calib_intrinsics as jcal
+
+    flags = (cv2.CALIB_CB_ADAPTIVE_THRESH | cv2.CALIB_CB_FAST_CHECK
+             | cv2.CALIB_CB_NORMALIZE_IMAGE)
+    term = (cv2.TERM_CRITERIA_EPS + cv2.TERM_CRITERIA_MAX_ITER, 30, 0.001)
+    corners = []
+    for g in frames:
+        found, c = cv2.findChessboardCorners(g, (9, 6), flags)
+        assert found
+        corners.append(cv2.cornerSubPix(g, c, (11, 11), (-1, -1), term).reshape(-1, 2))
+    out = {"frames": frames, "corners": np.stack(corners)}
+    with tempfile.TemporaryDirectory() as d:
+        for i, g in enumerate(frames):
+            cv2.imwrite(os.path.join(d, f"c_{i:03d}.png"), cv2.cvtColor(g, cv2.COLOR_GRAY2BGR))
+        jcal.main([d, "--stride", "1", "--out", os.path.join(d, "cam.npz")])
+        with np.load(os.path.join(d, "cam.npz")) as z:
+            out["K"], out["dist"] = z["camera_matrix"], z["distortion_coeffs"]
+    return out
+
+
+def calib_set() -> dict:
+    """The ``calib/...`` keys (see the module docstring)."""
+    import cv2
+    from test_charuco_calib import K_TRUE, _known_camera_views
+
+    from deepcharuco_tpu.cli import calib_intrinsics as jcal
+
+    cfg, views, _, _ = _known_camera_views()
+    rng = np.random.default_rng(3)
+    dark = []
+    for f in views:
+        g = cv2.GaussianBlur(f, (5, 5), 0).astype(np.float32) * 0.25
+        dark.append(np.clip(g + rng.normal(0, 6.0, g.shape), 0, 255).astype(np.uint8))
+    out = {"calib/views": views, "calib/dark": np.stack(dark), "calib/K_true": K_TRUE}
+    for name in ("clean", "dark"):
+        K_, dist, err, used = jcal.charuco_calibrate(out[f"calib/{'views' if name == 'clean' else 'dark'}"],
+                                                     cfg, DET, RN32, verbose=False)
+        out.update({f"calib/{name}/K": K_, f"calib/{name}/dist": dist,
+                    f"calib/{name}/err": np.float64(err), f"calib/{name}/used": np.int64(used)})
+    out.update({f"calib/chess/{k}": v for k, v in _cv2_chessboard(chessboard_frames()).items()})
+    tilted, K_tilted = tilted_chessboard_frames()
+    out.update({f"calib/tilted/{k}": v for k, v in _cv2_chessboard(tilted).items()})
+    out["calib/tilted/K_true"] = K_tilted
+    return out
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description="Write " + OUT)
+    p.add_argument("--only", choices=["calib"], default=None,
+                   help="recompute only these keys into the existing file")
+    if p.parse_args(argv).only == "calib":
+        with np.load(OUT) as z:
+            out = {k: z[k] for k in z.files}
+        out.update(calib_set())
+        np.savez_compressed(OUT, **out)
+        print(OUT, os.path.getsize(OUT), "bytes;", {k: out[k].tolist() for k in out
+                                                    if k.startswith("calib/") and out[k].size < 20})
+        return
     x, x_hi = frames(), frames_hi()
     out = {"frames": x, "frames_hi": x_hi, "K": K, "K_hi": K_HI, "dist": DIST}
     for tag, res in (("bf16", jax_outputs(x, jnp.bfloat16)),
@@ -437,6 +571,7 @@ def main():
     out.update(_flat(rn, "train/rn"))
     out.update(jax_eval(out))
     out.update(host_samples())
+    out.update(calib_set())
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     np.savez_compressed(OUT, **out)
     print(OUT, os.path.getsize(OUT), "bytes;",

@@ -143,7 +143,7 @@ def test_cv2_flags_fail_clearly_without_cv2(small, monkeypatch):
     with pytest.raises(SystemExit, match="needs OpenCV"):
         infer_cli.main([str(tmp / "frames.npy"), "--out-dir", str(tmp / "o")] + base)
     with pytest.raises(SystemExit, match="needs OpenCV"):
-        infer_cli.main([str(tmp / "a.png")] + base)
+        infer_cli.main([str(tmp / "a.jpg")] + base)     # .png reads without cv2
     with pytest.raises(SystemExit, match="needs OpenCV"):
         pose_cli.main([str(tmp / "frames.npy")] + base)
     with pytest.raises(SystemExit, match="needs OpenCV"):

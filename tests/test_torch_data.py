@@ -458,10 +458,13 @@ try:
 except SystemExit as e:
     assert "cv2" in str(e), e
 else:
-    raise AssertionError("a photo was read without cv2")
+    raise AssertionError("a JPEG was read without cv2")
+from deepcharuco_tpu_torch.data import png
+png.write_png(sys.argv[1] + "/b.png", np.full((4, 5, 3), 7, np.uint8))
+assert (DirectoryImageSource(sys.argv[1]).get(1) == 7).all()   # PNG: no cv2 needed
 print("ok")
 """
-    (tmp_path / "a.png").write_bytes(b"not read")
+    (tmp_path / "a.jpg").write_bytes(b"not read")
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-2000:]

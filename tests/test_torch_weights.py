@@ -161,5 +161,6 @@ def test_the_static_checks_cover_the_new_modules():
                  "parallel/__init__.py", "cli/__init__.py", "cli/train.py",
                  "cli/train_refinenet.py", "compat/__init__.py", "compat/torch_convert.py",
                  "utils.py", "pose_filter.py", "bench.py", "cli/benchmark.py",
-                 "cli/infer.py", "cli/eval.py", "cli/pose_video.py"):
+                 "cli/infer.py", "cli/eval.py", "cli/pose_video.py", "calib.py",
+                 "data/png.py", "data/cvnp.py", "cli/calib_intrinsics.py", "cli/view.py"):
         assert os.path.join("deepcharuco_tpu_torch", *want.split("/")) in rels
