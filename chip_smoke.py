@@ -145,11 +145,29 @@ stopping at the first failure with a non-zero exit:
     the 11×11 refinement, the tilted views' K within 3e-5 of fx of JAX's);
     ``cli.view`` in its three modes, one page each, read back equal to the
     grid drawn, the predictions page equal to ``detect`` drawn; detection
-    ms per view, solver ms, each CLI's wall time and B1's launches by path.
+    ms per view, solver ms, each CLI's wall time and B1's launches by path;
+17. several ranks (``parallel.mesh``): at world size 1 under NCCL in this
+    process, ``sharded_inference`` of ``two_stage_forward`` and
+    ``full_forward`` (both ``fused_head`` settings) on the fixture and on a
+    batch of 256 bit-equal to the calls without a mesh, and three
+    ``sharded_train_step``s (batch 32, TF32 off, cuDNN deterministic)
+    bit-equal to the plain step, with ms per batch and per step beside the
+    plain calls; then two ranks sharing the card under gloo: ``cli.train
+    --device-synth`` under torchrun on 2×1 and 1×2 meshes against one
+    process at the same seed (``NVIDIA_TF32_OVERRIDE=0``; train_loss per
+    step within 1e-5 relative, and rank 0's last checkpoint's parameters
+    within 0.05 lr of one process's, root mean square), rank 0's checkpoint
+    served; and
+    ``chip_smoke.py --ranks DIR`` (the rank worker) for gloo's collectives
+    on CUDA tensors, sharded inference on both meshes against one card
+    (phase 4's limits), steps/s per mesh (two ranks sharing one card, not
+    a scaling figure), peak memory per rank, the collectives' profiler
+    spans in a step, and B1/B2 launches per rank.
 
 Its last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with the kernels' numbers, and ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX. Run from anywhere: ``python3 chip_smoke.py``.
+nothing of JAX. Run from anywhere: ``python3 chip_smoke.py``; it runs
+``python3 chip_smoke.py --ranks DIR`` under torchrun itself.
 """
 
 from __future__ import annotations
@@ -2201,6 +2219,466 @@ def phase_calib_view(cfg, fix, dev):
     return out, sum(launches.values())
 
 
+# ---------------------------------------------------------------------------
+# 17. Several ranks: the mesh at world size 1 under NCCL, two ranks under gloo
+# ---------------------------------------------------------------------------
+
+# Two ranks against one process (`cli.train`, 4 steps from the shipped weights
+# on the same global batch, bit for bit, lr 1e-4, TF32 off). A sound mesh
+# differs from one process only in the order of float32 sums (BatchNorm's mean
+# of the ranks' means, the gradient summed over ranks, convolutions on
+# 120-row halves whose cuDNN algorithm may differ). Two readings, each with
+# its limit between the sound runs' largest reading and the smallest reading
+# of a planted fault (`scripts/probe_torch_parallel_faults.py`, PERF.md):
+# train_loss per logged step, relative; and the last checkpoint's parameters
+# against one process's, root mean square in units of lr, leaving out the
+# convolution biases that feed a BatchNorm (their gradient is zero up to
+# rounding, and Adam turns that rounding into steps of up to lr of its own).
+# On an NVIDIA H100 80GB HBM3 at 700 W the sound 2x1 and 1x2 runs read at most
+# 1.43e-6 and 0.0044 lr; with the gradient average left out or per-rank
+# BatchNorm statistics, at least 4.5e-3 and 0.75 lr.
+PARALLEL_LOSS_REL = 1e-5
+PARALLEL_PARAM_RMS_LR = 0.05
+PARALLEL_STEPS = 4
+PARALLEL_LR = 1e-4
+PARALLEL_TRAIN = ["--device-synth", "--init-npz", DET, "--lr", str(PARALLEL_LR),
+                  "--batch-size", "32", "--steps", str(PARALLEL_STEPS), "--eval-every", "1",
+                  "--eval-batches", "1"]
+DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+            "MASTER_PORT")
+
+
+def _sync_ms(fn, iters: int = 5) -> float:
+    """Host ms per call of ``fn``, the card synchronised around the run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def _detector_f32(dev):
+    import torch
+
+    from deepcharuco_tpu_torch.models import Detector
+    from deepcharuco_tpu_torch.weights import (detector_state_dict, load_state,
+                                               variables_from_npz)
+
+    det = Detector(N_IDS, torch.float32)
+    return load_state(det, detector_state_dict(variables_from_npz(DET))).to(dev)
+
+
+def _inference_fns(pipes, fix, dev):
+    """name → fn(det, rn, frames) for phase 17's sharded inference."""
+    from deepcharuco_tpu_torch.board import inner_corner_object_points
+    from deepcharuco_tpu_torch.pipeline import full_forward, two_stage_forward
+
+    folded = pipes["fused"].folded
+    obj = inner_corner_object_points(5, 5, 0.01)
+    K, dist = fix["K"], fix["dist"]
+    return {
+        "two_stage": lambda d, r, x: two_stage_forward(d, r, x, N_IDS, device=dev),
+        "two_stage fused": lambda d, r, x: two_stage_forward(d, r, x, N_IDS, fused_head=True,
+                                                             folded=folded, device=dev),
+        "full_forward": lambda d, r, x: full_forward(d, r, x, N_IDS, obj, K, dist,
+                                                     device=dev),
+        "full_forward fused": lambda d, r, x: full_forward(d, r, x, N_IDS, obj, K, dist,
+                                                           fused_head=True, folded=folded,
+                                                           device=dev)}
+
+
+def phase_parallel_world1(cfg, fix, dev, pipes, batch):
+    """17a. World size 1 under NCCL in this process (a file store): sharded
+    inference and three sharded train steps bit-equal to the plain calls,
+    every collective launched (at one rank NCCL's sum is the identity)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from deepcharuco_tpu_torch.data import DeviceSynthesizer
+    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
+    from deepcharuco_tpu_torch.parallel import (init_distributed, make_mesh, shard_batch,
+                                                sharded_inference, sharded_train_step)
+    from deepcharuco_tpu_torch.train import create_detector_state, make_detector_train_step
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    saved = {k: os.environ.pop(k) for k in DIST_ENV if k in os.environ}
+    out, launches = {}, {"decode": 0, "fused_head_decode": 0}
+    try:
+        init_distributed(init_method=f"file://{os.path.join(tmp, 'store')}")
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                f"phase 17 world 1: backend {dist.get_backend()}")
+        mesh = make_mesh(1, 1)
+        det, rn = pipes["heads+decode"].detector, pipes["heads+decode"].refinenet
+        for name, fn in _inference_fns(pipes, fix, dev).items():
+            run = sharded_inference(fn, mesh)
+            for tag, frames in (("fixture", fix["frames"]), (f"batch of {N}", batch)):
+                want = fn(det, rn, frames)
+                cuda_decode.launches = cuda_fused.launches = 0
+                got = run(det, rn, frames)
+                torch.cuda.synchronize()
+                counts = (cuda_decode.launches, cuda_fused.launches)
+                launches["decode"] += counts[0]
+                launches["fused_head_decode"] += counts[1]
+                same = _same(got, want)
+                log(f"phase 17 world 1 (NCCL) sharded_inference [{name}] on the {tag}: "
+                    f"bit-equal to the call without a mesh: {same}; B1/B2 launches {counts}")
+                require(same, f"phase 17 world 1 [{name}, {tag}]: differs from the plain call")
+                require(counts == ((0, 1) if "fused" in name else (1, 0)),
+                        f"phase 17 world 1 [{name}]: kernel launches {counts}")
+            if name in ("two_stage", "two_stage fused"):
+                ms = _sync_ms(lambda: run(det, rn, batch))
+                plain = _sync_ms(lambda: fn(det, rn, batch))
+                out[f"{name} ms_per_batch"] = {"mesh": ms, "plain": plain}
+                log(f"phase 17 world 1 [{name}]: {ms:.3f} ms per batch of {N} on the mesh, "
+                    f"{plain:.3f} without")
+
+        torch.backends.cudnn.deterministic = True
+        synth = DeviceSynthesizer(cfg, device=dev)
+        images, loc, ids = synth.batch(torch.Generator(device=dev).manual_seed(5), 32)
+
+        def three(step, batch_):
+            state = create_detector_state(_detector_f32(dev), 5e-3)
+            losses = []
+            for _ in range(3):
+                state, aux = step(state, *batch_)
+                losses.append(aux["loss"].clone())
+            return losses, [t.clone() for t in state.model.state_dict().values()], state
+
+        plain_step = make_detector_train_step()
+        mesh_step = sharded_train_step(plain_step, mesh)
+        ref = three(plain_step, (images, loc, ids))
+        again = three(plain_step, (images, loc, ids))
+        got = three(mesh_step, shard_batch(mesh, (images, loc, ids)))
+        # the state must be bit-equal; the loss scalar too where the plain step
+        # gives the same bits twice (CUDA's 2-d NLL loss sums blocks atomically)
+        deterministic = _same(ref[1], again[1])
+        loss_bits = _same(ref[0], again[0])
+        same = _same(ref[1], got[1])
+        same_loss = _same(ref[0], got[0])
+        loss_rel = max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(got[0], ref[0]))
+        log(f"phase 17 world 1 (NCCL): 3 sharded_train_steps (batch 32, 240x320, TF32 off, "
+            f"cuDNN deterministic) against the plain step: parameters and running "
+            f"statistics bit-equal {same}, losses bit-equal {same_loss} (relative "
+            f"{loss_rel:.2e}); the plain step twice: state {deterministic}, losses "
+            f"{loss_bits}; losses {[round(float(x), 6) for x in got[0]]}")
+        require(deterministic, "phase 17 world 1: the plain step is not deterministic")
+        require(same, "phase 17 world 1: the sharded step differs from the plain step")
+        require(same_loss if loss_bits else loss_rel <= 1e-6,
+                "phase 17 world 1: the sharded step's losses differ from the plain step's")
+        out.update(state_bit_equal=same, loss_bit_equal=same_loss, loss_rel=loss_rel)
+        state = got[2]
+        step_ms = _sync_ms(lambda: mesh_step(state, images, loc, ids))
+        plain_ms = _sync_ms(lambda: plain_step(state, images, loc, ids))
+        out["step_ms"] = {"mesh": step_ms, "plain": plain_ms}
+        log(f"phase 17 world 1 (NCCL): {step_ms:.3f} ms per step on the mesh, {plain_ms:.3f} "
+            f"without (batch 32, TF32 off)")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        os.environ.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    return out, launches
+
+
+def checkpoint_gap(got_dir, want_dir, lr):
+    """Two detector checkpoints apart: the parameters' largest |Δ| and root
+    mean square |Δ| in units of ``lr``, over every weight but the
+    convolution biases that feed a BatchNorm; the running statistics'
+    largest |Δ| relative to each tensor's largest value."""
+    with np.load(os.path.join(got_dir, "variables.npz")) as a, \
+            np.load(os.path.join(want_dir, "variables.npz")) as b:
+        d = {k: np.abs(a[k].astype(np.float64) - b[k]) for k in b.files}
+        scale = {k: float(np.abs(b[k]).max()) for k in b.files}
+    weights = np.concatenate([v.ravel() for k, v in d.items()
+                              if k.startswith("params/") and not k.endswith("/conv/bias")])
+    return {"max_lr": float(weights.max() / lr),
+            "rms_lr": float(np.sqrt(np.mean(weights ** 2)) / lr),
+            "stats_rel": max(float(v.max()) / scale[k] for k, v in d.items()
+                             if k.startswith("batch_stats/"))}
+
+
+def loss_gap(got, want):
+    """The largest relative train_loss difference over the logged steps."""
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _run(cmd, tag, env, timeout=600):
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        log(run.stdout[-4000:])
+        log(run.stderr[-4000:])
+    require(run.returncode == 0, f"phase 17 {tag}: exit code {run.returncode}")
+    return run, wall
+
+
+def _torchrun(n):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(n)]
+
+
+def parallel_cli_run(tmp, tag, launch, extra, env):
+    """``cli.train`` with phase 17's arguments and ``extra``, started by
+    ``launch`` (the command up to the trainer's arguments) → (train_loss by
+    logged step, the last checkpoint's directory, the run, its wall s)."""
+    d = os.path.join(tmp, tag.replace(" ", "_"))
+    run, wall = _run(launch + PARALLEL_TRAIN + extra
+                     + ["--logdir", os.path.join(d, "tb"), "--ckpt-dir", os.path.join(d, "ck")],
+                     f"cli.train [{tag}]", env)
+    rows = jsonl_rows(os.path.join(d, "tb"))
+    require([r["step"] for r in rows] == list(range(1, PARALLEL_STEPS + 1)),
+            f"phase 17 cli.train [{tag}]: logged steps {[r['step'] for r in rows]}")
+    return ([r["train_loss"] for r in rows],
+            os.path.join(d, "ck", f"step_{PARALLEL_STEPS:07d}"), run, wall)
+
+
+def parallel_env():
+    """The environment of phase 17's ranks: no rank variables of this
+    process, TF32 off, the checkout importable."""
+    env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
+    env.update(NVIDIA_TF32_OVERRIDE="0", PYTHONPATH=ROOT)
+    return env
+
+
+def phase_parallel_ranks(cfg, fix, dev, pipes, batch):
+    """17b. Two ranks on the one card under gloo: the trainer through
+    torchrun against one process at the same seed, rank 0's checkpoint
+    served; then ``chip_smoke.py --ranks`` in two ranks (sharded inference
+    on 2×1 and 1×2 meshes, steps/s, peak memory, collective share)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepcharuco_tpu_torch.pipeline import load_pipeline
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    env = parallel_env()
+    out = {}
+    try:
+        losses, cks = {}, {}
+        cli = ["-m", "deepcharuco_tpu_torch.cli.train"]
+        for tag, launch, extra in (
+                ("one process", [sys.executable] + cli, []),
+                ("2 ranks 2x1", _torchrun(2) + cli, ["--data-parallel"]),
+                ("2 ranks 1x2", _torchrun(2) + cli, ["--data-parallel", "--mesh-spatial", "2"])):
+            losses[tag], cks[tag], run, wall = parallel_cli_run(tmp, tag, launch, extra, env)
+            backends = sorted({line.split("backend ")[1].split(",")[0]
+                               for line in run.stdout.splitlines() if "backend " in line})
+            log(f"phase 17 cli.train [{tag}] (batch 32, --init-npz, lr {PARALLEL_LR}, TF32 "
+                f"off): {wall:.1f} s, backends {backends}; train_loss by step "
+                f"{[round(x, 6) for x in losses[tag]]}")
+            if extra:
+                require(backends == ["gloo"], f"phase 17 [{tag}]: backends {backends}")
+                require(run.stdout.count("best checkpoint:") == 1,
+                        f"phase 17 [{tag}]: more than rank 0 reported a checkpoint")
+                rel = loss_gap(losses[tag], losses["one process"])
+                gap = checkpoint_gap(cks[tag], cks["one process"], PARALLEL_LR)
+                out[f"cli {tag} max_rel_loss"] = rel
+                out[f"cli {tag} checkpoint_gap"] = gap
+                log(f"phase 17 cli.train [{tag}] against one process: train_loss within "
+                    f"{rel:.3e} relative (limit {PARALLEL_LOSS_REL}); rank 0's last "
+                    f"checkpoint's parameters {gap['rms_lr']:.3e} lr apart, root mean square "
+                    f"(limit {PARALLEL_PARAM_RMS_LR}), largest {gap['max_lr']:.3e} lr; "
+                    f"running statistics within {gap['stats_rel']:.3e} relative")
+                require(rel <= PARALLEL_LOSS_REL, f"phase 17 [{tag}]: losses disagree")
+                require(gap["rms_lr"] <= PARALLEL_PARAM_RMS_LR,
+                        f"phase 17 [{tag}]: the trained parameters disagree")
+            out[f"cli {tag} wall_s"] = wall
+        out["cli_losses"] = losses
+        kp, v, r = load_pipeline(cfg, cks["2 ranks 1x2"], RN, device=dev).detect(fix["frames"])
+        require(kp.shape == (8, N_IDS, 2) and np.isfinite(r).all(),
+                "phase 17: rank 0's checkpoint does not serve")
+        log(f"phase 17 rank 0's checkpoint step_{PARALLEL_STEPS:07d} (1x2 mesh) served by "
+            f"InferencePipeline: {int(v.sum())} corners on the 8 fixture frames")
+
+        np.save(os.path.join(tmp, "batch.npy"), batch)
+        run, wall = _run(_torchrun(2) + [os.path.join(ROOT, "chip_smoke.py"), "--ranks", tmp],
+                         "chip_smoke.py --ranks", env)
+        for line in run.stdout.splitlines():
+            if line.startswith("phase 17"):
+                log(line)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            log(f"phase 17 2 ranks: rank {r}'s B1/B2 launches in its 4 sharded inference "
+                f"calls {ranks[r]['launches']}")
+        for name, pipe in pipes.items():
+            kp, v, r = (torch.from_numpy(a) for a in pipe.detect(batch))
+            for layout in ("2x1", "1x2"):
+                with np.load(os.path.join(tmp, f"infer_{layout}_{name}.npz")) as z:
+                    gk, gv, gr = (torch.from_numpy(z[k]) for k in ("kp", "valid", "refined"))
+                slot, coord = mismatch(gk, gv, kp, v)
+                agree = gv & v & ((gk - kp).abs().amax(-1) == 0)
+                near = float(((gr - r).abs().amax(-1) <= 0.125)[agree].float().mean())
+                out[f"infer {layout} {name}"] = {"slot": slot, "coord": coord, "near": near}
+                log(f"phase 17 2 ranks sharded_inference [{name}] on {layout} against one "
+                    f"card, batch of {N}: slot mismatch {slot:.4f}, coord mismatch "
+                    f"{coord:.4f}, |Δrefined|≤0.125 on {near:.4f} of {int(agree.sum())}")
+                require(slot <= 0.02 and coord <= 0.02 and near >= 0.98,
+                        f"phase 17 2 ranks [{name}, {layout}] disagree with one card")
+        out["ranks"] = ranks
+        out["ranks wall_s"] = wall
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"decode": sum(r["launches"]["decode"] for r in ranks),
+                "fused_head_decode": sum(r["launches"]["fused_head_decode"] for r in ranks)}
+    return out, launches
+
+
+def ranks_worker(tmp) -> int:
+    """One rank of ``chip_smoke.py --ranks DIR`` under torchrun (two ranks on
+    one card, gloo): the collectives on CUDA tensors, sharded inference of
+    the batch in ``DIR/batch.npy`` on 2×1 and 1×2 meshes (rank 0 writes the
+    outputs), sharded train steps per mesh (steps/s, peak memory, the
+    collectives' share of a step), B1/B2 launches; ``DIR/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, ROOT)
+    from deepcharuco_tpu_torch import _build
+    from deepcharuco_tpu_torch.configs import default_config
+    from deepcharuco_tpu_torch.data import DeviceSynthesizer
+    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
+    from deepcharuco_tpu_torch.parallel import (init_distributed, make_mesh,
+                                                sharded_inference, sharded_train_step)
+    from deepcharuco_tpu_torch.pipeline import InferencePipeline, two_stage_forward
+    from deepcharuco_tpu_torch.train import (create_detector_state,
+                                             make_detector_train_step)
+    from deepcharuco_tpu_torch.weights import variables_from_npz
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_distributed()
+    rank = dist.get_rank()
+    _build.build()
+    x = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(x)
+    parts = [torch.empty(2, device=dev) for _ in range(2)]
+    dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
+    b = torch.full((3,), float(rank + 5), device=dev)
+    dist.broadcast(b, 0)
+    ok = (bool((x == 3).all()) and [float(p[0]) for p in parts] == [0.0, 1.0]
+          and bool((b == 5).all()))
+    if rank == 0:
+        log(f"phase 17 gloo on CUDA tensors, 2 ranks sharing {torch.cuda.get_device_name(0)}: "
+            f"all_reduce, all_gather, broadcast right: {ok}")
+    require(ok, "gloo collectives on CUDA tensors")
+
+    cfg = default_config()
+    dv, rv = variables_from_npz(DET), variables_from_npz(RN)
+    pipes = {"heads+decode": InferencePipeline(cfg, dv, rv, device=dev),
+             "fused": InferencePipeline(cfg, dv, rv, fused_head=True, device=dev)}
+    batch = np.load(os.path.join(tmp, "batch.npy"))
+    report = {"launches": {"decode": 0, "fused_head_decode": 0}}
+    synth = DeviceSynthesizer(cfg, device=dev)
+    for layout in ((2, 1), (1, 2)):
+        mesh = make_mesh(*layout, device=dev)
+        tag = f"{layout[0]}x{layout[1]}"
+        for name, pipe in pipes.items():
+            fn = lambda d, r, x, p=pipe: two_stage_forward(
+                d, r, x, N_IDS, fused_head=p.fused_head, folded=p.folded, device=dev)
+            run = sharded_inference(fn, mesh)
+            run(pipe.detector, pipe.refinenet, batch)            # warm-up
+            torch.cuda.synchronize()
+            dist.barrier()
+            cuda_decode.launches = cuda_fused.launches = 0
+            t0 = time.perf_counter()
+            kp, valid, refined = run(pipe.detector, pipe.refinenet, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = {"decode": cuda_decode.launches, "fused_head_decode": cuda_fused.launches}
+            for k, v in counts.items():
+                report["launches"][k] += v
+            report[f"infer {tag} {name}"] = {"ms": ms, "launches": counts}
+            if rank == 0:
+                np.savez(os.path.join(tmp, f"infer_{tag}_{name}.npz"), kp=kp.cpu().numpy(),
+                         valid=valid.cpu().numpy(), refined=refined.cpu().numpy())
+                log(f"phase 17 2 ranks sharded_inference [{name}] {tag}: {ms:.1f} ms for a "
+                    f"batch of {N} (two ranks sharing one card); B1/B2 launches on rank 0 "
+                    f"{counts}")
+            require(counts["decode" if name == "heads+decode" else "fused_head_decode"] == 1,
+                    f"2 ranks [{name}, {tag}]: kernel launches {counts}")
+
+        state = create_detector_state(_detector_f32(dev), 1e-4)
+        step = sharded_train_step(make_detector_train_step(), mesh)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        share = (mesh.coords[0], mesh.shape["data"])
+        data = synth.batch(gen, 32, share=share)
+        for _ in range(2):
+            state, aux = step(state, *data)
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps = 5
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, aux = step(state, *data)
+        torch.cuda.synchronize()
+        sps = steps / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, aux = step(state, *data)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        spans = {}
+        for e in prof.events():
+            if e.name.startswith("parallel.") and e.device_type == DeviceType.CPU:
+                spans[e.name] = spans.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        share_coll = sum(spans.values()) / wall
+        local = make_detector_train_step()                  # the same shard, no collectives
+        dist.barrier()
+        local_ms = _sync_ms(lambda: local(state, *data))
+        report[f"train {tag}"] = {"steps_per_s": sps, "peak_gib": peak, "step_ms": wall,
+                                  "collective_span_ms": spans, "collective_share": share_coll,
+                                  "local_step_ms": local_ms, "loss": float(aux["loss"])}
+        log(f"phase 17 2 ranks train {tag} rank {rank} (two ranks sharing one card, not a "
+            f"scaling figure): {sps:.2f} steps/s of the global batch 32, peak "
+            f"{peak:.2f} GiB; profiled step {wall:.1f} ms, collective spans "
+            f"{ {k: round(v, 2) for k, v in spans.items()} } ms = {share_coll:.3f} of it; "
+            f"the same shard's step without collectives {local_ms:.1f} ms")
+        dist.barrier()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(cfg, fix, dev, pipes, batch):
+    """17. Several ranks (the port's ``parallel.mesh``)."""
+    t0 = time.perf_counter()
+    world1, l1 = phase_parallel_world1(cfg, fix, dev, pipes, batch)
+    ranks, l2 = phase_parallel_ranks(cfg, fix, dev, pipes, batch)
+    launches = {k: l1[k] + l2[k] for k in l1}
+    out = {"world1": world1, "ranks": ranks, "launches": launches,
+           "phase_s": time.perf_counter() - t0}
+    log(f"phase 17 B1/B2 launches on the sharded paths: world 1 {l1}, two ranks {l2}; "
+        f"{out['phase_s']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -2260,6 +2738,7 @@ def main() -> int:
         "hires": ("phase 9 hi-res ms/batch of 64", min(pose["hires"]["with_pose_ms"]))})
     host, host_launches = phase_host(cfg, fix, dev)
     calib_view, calib_launches = phase_calib_view(cfg, fix, dev)
+    parallel, parallel_launches = phase_parallel(cfg, fix, dev, pipes, batch)
     for i, row in enumerate(rows):
         row["launches_pose_path"] = pose_launches[row["name"]]
         row["launches_int8_path"] = int8_launches if row["name"] == "decode" else 0
@@ -2268,10 +2747,11 @@ def main() -> int:
         row["launches_entry_points"] = entry_launches[row["name"]]
         row["launches_host_paths"] = host_launches if row["name"] == "decode" else 0
         row["launches_calib_view_paths"] = calib_launches if row["name"] == "decode" else 0
+        row["launches_parallel_paths"] = parallel_launches[row["name"]]
     log(json.dumps({"serve": serve, "fused_mismatch": fused_rates, "yardsticks": yard,
                     "build_s": build_s, "pose": pose, "geom": geom, "int8": int8,
                     "streams": streams, "train": train, "entry_points": entry,
-                    "host": host, "calib_view": calib_view}))
+                    "host": host, "calib_view": calib_view, "parallel": parallel}))
     log(smi())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2282,6 +2762,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--ranks"]:
+            sys.exit(ranks_worker(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -23,7 +23,9 @@ Layout
   ``load_model_variables``
 - :mod:`deepcharuco_tpu_torch.data`     — on-card synthesis (``device_synth``)
 - :mod:`deepcharuco_tpu_torch.train`    — steps, losses, metrics, checkpoints,
-  logging; :mod:`deepcharuco_tpu_torch.parallel` — ``synth_scan_program``
+  logging
+- :mod:`deepcharuco_tpu_torch.parallel` — the ('data', 'spatial') mesh on
+  ``torch.distributed``, the sharded programs, ``synth_scan_program``
 - :mod:`deepcharuco_tpu_torch.cli`      — ``train``, ``train_refinenet``,
   ``benchmark``, ``infer``, ``eval``, ``pose_video``
 - :mod:`deepcharuco_tpu_torch.bench`    — the benchmark harness

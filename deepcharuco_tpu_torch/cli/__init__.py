@@ -18,13 +18,6 @@ from typing import List, Tuple
 import numpy as np
 
 
-def not_ported(what: str, item: str):
-    """Raise for a flag whose machinery the port does not have yet;
-    ``item`` is its entry in ROADMAP.md §A."""
-    raise NotImplementedError(f"{what} is not ported to deepcharuco_tpu_torch yet "
-                              f"(ROADMAP.md §A, {item})")
-
-
 def need_cv2(what: str):
     """cv2, or ``SystemExit`` naming what needs it."""
     try:

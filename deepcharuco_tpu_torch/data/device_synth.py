@@ -21,6 +21,13 @@ Two things differ in form:
   The fixed loops over the 2 background blobs and the 6 dropout holes stay
   unrolled.
 
+Each :meth:`batch` takes ``share=(i, k)``: the whole batch is drawn and
+only share ``i`` of ``k`` is rendered (:func:`slice_draws`). Every draw has
+a leading batch dimension and every sample is rendered from its own draws,
+so the share is those rows of the whole batch, bit for bit: how the ranks
+of a mesh each synthesize their own samples of one global batch
+(``parallel.mesh.sharded_synth_train_program``).
+
 Label-map collisions (two corners in one 8×8 cell) go to the corner that
 comes *last* in the sample's random permutation, the corner XLA's scatter
 keeps (``loc_flat.at[cell[perm]].set(...)`` applies the updates in order).
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -126,6 +134,21 @@ def draw_photometric(gen, n: int, hw: Tuple[int, int], low_gain_p: float,
                   "read_sigma": _uniform(gen, (n,), 1.0, 6.0, device),
                   "dark_noise": torch.randn((n, *hw), generator=gen, device=device)})
     return d
+
+
+def share_rows(n: int, share: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+    """Rows [lo, hi) of share ``(i, k)`` of ``n`` rows; all of them when
+    ``share`` is None or ``k`` does not divide ``n``."""
+    if share is None or n % share[1]:
+        return 0, n
+    per = n // share[1]
+    return share[0] * per, (share[0] + 1) * per
+
+
+def slice_draws(d: Draws, lo: int, hi: int) -> Draws:
+    """Samples ``lo`` … ``hi − 1`` of draws ``d`` (every tensor's rows)."""
+    return {k: slice_draws(v, lo, hi) if isinstance(v, dict) else v[lo:hi]
+            for k, v in d.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -433,9 +456,10 @@ class DeviceSynthesizer:
         """(images (B, H, W, 1) float32, loc (B, Hc, Wc) int32, ids int32)."""
         return self.render_full(d)[:3]
 
-    def batch(self, gen: torch.Generator, n: int):
-        """``n`` fresh samples: :meth:`render` of :meth:`draw`."""
-        return self.render(self.draw(gen, n))
+    def batch(self, gen: torch.Generator, n: int, share=None):
+        """``n`` fresh samples: :meth:`render` of :meth:`draw`; with
+        ``share=(i, k)`` only share ``i`` of ``k`` of them."""
+        return self.render(slice_draws(self.draw(gen, n), *share_rows(n, share)))
 
 
 def _inv3(m: torch.Tensor) -> torch.Tensor:
@@ -499,9 +523,22 @@ class FramePatchSynthesizer:
         n = batch_size or patches.shape[0] * patches.shape[1]
         return (patches.reshape(-1, ps, ps, 1)[:n], heat.reshape(-1, 64, 64, 1)[:n])
 
-    def batch(self, gen: torch.Generator, batch_size: int):
-        """``batch_size`` patches from ``batch_size // per_frame`` frames."""
-        return self.render(self.draw(gen, batch_size), batch_size)
+    def batch(self, gen: torch.Generator, batch_size: int, share=None):
+        """``batch_size`` patches from ``batch_size // per_frame`` frames;
+        with ``share=(i, k)`` only share ``i`` of ``k`` of them, rendered
+        from that share's frames when it is a whole number of frames (else
+        every frame is rendered, with a warning)."""
+        d = self.draw(gen, batch_size)
+        lo, hi = share_rows(batch_size, share)
+        if hi - lo == batch_size:
+            return self.render(d, batch_size)
+        if lo % self.per_frame == 0 and hi % self.per_frame == 0:
+            return self.render(slice_draws(d, lo // self.per_frame, hi // self.per_frame),
+                               hi - lo)
+        warnings.warn(f"FramePatchSynthesizer: a share of {hi - lo} patches is not a "
+                      f"multiple of per_frame ({self.per_frame}); every share renders all "
+                      "the frames", stacklevel=2)
+        return tuple(t[lo:hi] for t in self.render(d, batch_size))
 
 
 class DeviceRefineSynthesizer:
@@ -557,8 +594,10 @@ class DeviceRefineSynthesizer:
         heat = _heatmaps((p / 2.0 - center) * 8.0 + 32.0, self.continuous)
         return ((patch - 128.0) / 255.0)[..., None], heat[..., None]
 
-    def batch(self, gen: torch.Generator, n: int):
-        return self.render(self.draw(gen, n))
+    def batch(self, gen: torch.Generator, n: int, share=None):
+        """``n`` fresh patches; with ``share=(i, k)`` only share ``i`` of
+        ``k`` of them."""
+        return self.render(slice_draws(self.draw(gen, n), *share_rows(n, share)))
 
 
 def load_draws(arrays, prefix: str, device=None) -> Draws:

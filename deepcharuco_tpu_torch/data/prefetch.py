@@ -15,12 +15,13 @@ from __future__ import annotations
 import collections
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deepcharuco_tpu_torch._device import resolve_device
+from deepcharuco_tpu_torch.data.device_synth import share_rows
 
 
 class BatchLoader:
@@ -29,13 +30,21 @@ class BatchLoader:
     ``dataset[idx]`` returns a dict of numpy arrays; batches stack them on a
     new leading axis. Infinite (epochs wrap) unless ``max_batches`` is given;
     :meth:`stop` ends the threads.
+
+    ``share=(i, k)`` (rank ``i`` of a mesh's ``k`` data ranks) keeps the
+    index stream of global batches of ``batch_size`` and builds only share
+    ``i`` of each, ``batch_size / k`` samples (all of them when ``k`` does
+    not divide the batch): the ``k`` shares of a batch are the indices of
+    the one loader's batch of the same seed, and no sample is built twice.
     """
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 6,
                  shuffle: bool = True, seed: Optional[int] = None,
-                 queue_depth: int = 10, max_batches: Optional[int] = None):
+                 queue_depth: int = 10, max_batches: Optional[int] = None,
+                 share: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.share = share
         self.num_workers = max(1, num_workers)
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
@@ -77,6 +86,8 @@ class BatchLoader:
                     index_q.put(None)
                 return
             idxs = [next(stream) for _ in range(self.batch_size)]
+            lo, hi = share_rows(self.batch_size, self.share)
+            idxs = idxs[lo:hi]
             while not self._stop.is_set():
                 try:
                     index_q.put(idxs, timeout=0.2)

@@ -8,18 +8,41 @@ BatchNorm (eps 1e-5) runs before ReLU; the heads carry no activation.
 ``train=True`` (the trainers') normalizes with batch statistics and updates
 the running ones (:class:`ConvBNRelu`).
 
+``mesh`` (a ``parallel.mesh.Mesh``) runs the network as one rank of a mesh
+on this rank's data shard, whole frames: when :func:`splits_rows`
+the trunk convolves only this rank's rows of the height, with one halo row
+from each spatial neighbour before each 3×3 conv and local pools, and the
+trunk is gathered over ``spatial`` before the heads; in training the
+trunk's BatchNorm statistics reduce over the ranks that hold different
+pixels (the whole mesh when the height is split, else ``data``), the
+heads' over ``data``.
+
 Public layout is NHWC, as in the JAX package. Inside, convolutions run on
 ``channels_last`` NCHW tensors, so a ``permute(0, 2, 3, 1)`` of any
 activation is a free, contiguous NHWC view — the view the decode kernels
 read. Convolutions run in ``dtype`` (bf16 by default) with float32
-parameters for BatchNorm; the logits come back as float32.
+parameters for BatchNorm; the logits come back as float32 (float64 from a
+float64 module).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from deepcharuco_tpu_torch.parallel.collectives import all_gather, all_reduce, halo_rows
+
+
+def splits_rows(mesh, height: int) -> bool:
+    """Whether frames ``height`` rows high are split over the mesh's
+    ``spatial`` axis: when it has more than one rank and ``height % (8·n_s)
+    == 0``, so that every rank's rows stay even through the three pools."""
+    if mesh is None:
+        return False
+    n_s = mesh.shape["spatial"]
+    return n_s > 1 and height % (8 * n_s) == 0
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -45,7 +68,14 @@ class ConvBNRelu(nn.Module):
     running statistics as Flax's ``BatchNorm(momentum=0.9)`` does:
     ``running = 0.9·running + 0.1·batch`` with the biased variance. Torch's
     own update (``F.batch_norm(training=True)``) would store the unbiased
-    variance, n/(n−1) larger, so the update is written out here.
+    variance, n/(n−1) larger, so the update is written out here. The
+    statistics are float32 (float64 for a float64 module).
+
+    ``stats`` (a process group) reduces the batch statistics over its ranks,
+    differentiably; every rank of it holds as many pixels, so the global
+    means are the mean of the ranks' means. ``halo`` (a mesh whose height
+    is split) takes one row from each spatial neighbour and convolves with
+    no row padding.
     """
 
     MOMENTUM = 0.9
@@ -56,16 +86,24 @@ class ConvBNRelu(nn.Module):
         self.conv = nn.Conv2d(cin, cout, 3, padding=padding, dtype=dtype)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
-    def forward(self, x, train: bool = False):
-        x = self.conv(x)
+    def forward(self, x, train: bool = False, stats=None, halo=None):
+        if halo is None:
+            x = self.conv(x)
+        else:
+            x = halo_rows(x, halo).contiguous(memory_format=torch.channels_last)
+            x = F.conv2d(x, self.conv.weight, self.conv.bias, padding=(0, 1))
         bn = self.bn
         if not train:
             x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                              False, 0.0, bn.eps)
             return F.relu(x)
-        xf = x.float()
+        xf = as_f32(x)
         mean = xf.mean(dim=(0, 2, 3))
-        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+        sq = (xf * xf).mean(dim=(0, 2, 3))
+        if stats is not None:
+            k = dist.get_world_size(stats)
+            mean, sq = (all_reduce(torch.stack([mean, sq]), stats) / k).unbind(0)
+        var = (sq - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             bn.running_mean.mul_(m).add_((1 - m) * mean)
@@ -77,6 +115,12 @@ class ConvBNRelu(nn.Module):
 
 def pool(x):
     return F.max_pool2d(x, 2, 2)
+
+
+def as_f32(x: torch.Tensor) -> torch.Tensor:
+    """Float32 outputs of a bf16 or float32 module; a float64 module's stay
+    float64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 class Detector(nn.Module):
@@ -99,14 +143,24 @@ class Detector(nn.Module):
         self.convDa = blk(c4, c5)
         self.convDb = nn.Conv2d(c5, n_ids + 1, 1, dtype=dtype)
 
-    def forward(self, x, train: bool = False, trunk_only: bool = False):
+    def forward(self, x, train: bool = False, trunk_only: bool = False, mesh=None):
+        split = splits_rows(mesh, x.shape[1])
+        if split:
+            h = x.shape[1] // mesh.shape["spatial"]
+            x = x[:, mesh.coords[1] * h:(mesh.coords[1] + 1) * h]
+        stats = None if mesh is None else mesh.world if split else mesh.data
+        halo = mesh if split else None
+        blk = lambda m, x: m(x, train, stats, halo)
         x = to_nchw(x.to(self.dtype))
-        x = pool(self.conv1b(self.conv1a(x, train), train))
-        x = pool(self.conv2b(self.conv2a(x, train), train))
-        x = pool(self.conv3b(self.conv3a(x, train), train))
-        x = self.conv4b(self.conv4a(x, train), train)
+        x = pool(blk(self.conv1b, blk(self.conv1a, x)))
+        x = pool(blk(self.conv2b, blk(self.conv2a, x)))
+        x = pool(blk(self.conv3b, blk(self.conv3a, x)))
+        x = blk(self.conv4b, blk(self.conv4a, x))
+        if split:
+            x = all_gather(x, 2, mesh.spatial).contiguous(memory_format=torch.channels_last)
         if trunk_only:
             return {"trunk": to_nhwc(x)}
-        loc = self.convPb(self.convPa(x, train))
-        ids = self.convDb(self.convDa(x, train))
-        return {"loc": to_nhwc(loc.float()), "ids": to_nhwc(ids.float())}
+        stats = None if mesh is None else mesh.data
+        loc = self.convPb(self.convPa(x, train, stats))
+        ids = self.convDb(self.convDa(x, train, stats))
+        return {"loc": to_nhwc(as_f32(loc)), "ids": to_nhwc(as_f32(ids))}

@@ -14,7 +14,9 @@ weights.
 bottleneck (``convOa`` → pool → ``denseOa`` → ReLU → ``denseOb``): the
 corner's (dx, dy) in image px from the patch center. The forward pass then
 returns ``{"heat", "offset"}``. ``train=True`` runs every BatchNorm on batch
-statistics and updates the running ones (``models.detector.ConvBNRelu``).
+statistics and updates the running ones (``models.detector.ConvBNRelu``);
+with ``mesh`` those statistics reduce over its ``data`` axis (patches are
+never split spatially).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepcharuco_tpu_torch.models.detector import (ConvBNRelu, pool, to_nchw,
+from deepcharuco_tpu_torch.models.detector import (ConvBNRelu, as_f32, pool, to_nchw,
                                                    to_nhwc)
 
 
@@ -65,22 +67,24 @@ class RefineNet(nn.Module):
                                  align_corners=False)
         return F.interpolate(x, scale_factor=2, mode="nearest")
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, mesh=None):
+        stats = None if mesh is None else mesh.data
+        blk = lambda m, x: m(x, train, stats)
         x = to_nchw(x.to(self.dtype))
-        x = self.conv2b(self.conv2a(self.conv1b(self.conv1a(x, train), train), train), train)
+        x = blk(self.conv2b, blk(self.conv2a, blk(self.conv1b, blk(self.conv1a, x))))
         x = pool(x)                                  # 16 → 8, or 24 → 12
         if self.patch_size == 32:
-            x = self.conv2d(self.conv2c(x, train), train)    # 12 → 10 → 8
-        bottleneck = self.conv3b(self.conv3a(x, train), train)   # (N, c3, 8, 8)
+            x = blk(self.conv2d, blk(self.conv2c, x))        # 12 → 10 → 8
+        bottleneck = blk(self.conv3b, blk(self.conv3a, x))  # (N, c3, 8, 8)
         x = self._up(bottleneck)
-        x = self._up(self.conv4b(self.conv4a(x, train), train))
-        x = self._up(self.conv5b(self.conv5a(x, train), train))
-        heat = to_nhwc(self.convPb(self.convPa(x, train)).float())
+        x = self._up(blk(self.conv4b, blk(self.conv4a, x)))
+        x = self._up(blk(self.conv5b, blk(self.conv5a, x)))
+        heat = to_nhwc(as_f32(self.convPb(blk(self.convPa, x))))
         if not self.offset_head:
             return heat
-        o = pool(self.convOa(bottleneck, train))     # (N, 128, 4, 4)
+        o = pool(blk(self.convOa, bottleneck))       # (N, 128, 4, 4)
         # denseOa's 2048 inputs are ordered (row, col, channel), as the
         # JAX module flattens its NHWC map
         o = to_nhwc(o).flatten(1)
         offset = self.denseOb(F.relu(self.denseOa(o)))
-        return {"heat": heat, "offset": offset.float()}
+        return {"heat": heat, "offset": as_f32(offset)}

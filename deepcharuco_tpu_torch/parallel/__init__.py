@@ -1,21 +1,32 @@
-"""Synthesis + train-step programs (``deepcharuco_tpu.parallel``).
+"""Several cards and the synthesis + train-step programs
+(``deepcharuco_tpu.parallel``): the ('data', 'spatial') mesh of
+``torch.distributed`` ranks and the sharded programs (:mod:`.mesh`), and the
+differentiable collectives they run on (:mod:`.collectives`)."""
 
-Only the one-card part is ported: :func:`synth_scan_program`. The mesh,
-sharded steps and data parallelism across cards (``parallel/mesh.py`` →
-DDP) are not (ROADMAP.md §A, A7).
-"""
+from deepcharuco_tpu_torch.parallel.mesh import (
+    Mesh,
+    broadcast_spatial,
+    init_distributed,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_frames,
+    sharded_inference,
+    sharded_synth_train_program,
+    sharded_train_step,
+    synth_scan_program,
+)
 
-from __future__ import annotations
-
-
-def synth_scan_program(step_fn, batch_fn, fused_steps: int = 1):
-    """``program(state, gen) → (state, aux)``: ``fused_steps`` rounds of
-    ``step_fn(state, *batch_fn(gen))`` per call, the last round's aux
-    returned (the JAX package's ``lax.scan`` over sub-keys; here a plain
-    loop, each round drawing its batch from ``gen``)."""
-    def program(state, gen):
-        for _ in range(max(1, fused_steps)):
-            state, aux = step_fn(state, *batch_fn(gen))
-        return state, aux
-
-    return program
+__all__ = [
+    "Mesh",
+    "init_distributed",
+    "make_mesh",
+    "shard_batch",
+    "shard_frames",
+    "replicate",
+    "sharded_train_step",
+    "sharded_synth_train_program",
+    "synth_scan_program",
+    "sharded_inference",
+    "broadcast_spatial",
+]

@@ -15,6 +15,12 @@ same bias corrections, the same ε outside the square root. A
 :class:`TrainState` holds the module, its optimizer and the global step;
 a train step updates it in place and returns it with the step's scalars,
 which stay on the device (reading one waits for the card).
+
+Every step takes ``mesh`` (a ``parallel.mesh.Mesh``, None on one card): the
+model runs as one rank of the mesh on this rank's share of the batch, the
+gradients are averaged over every rank of the mesh after the backward
+pass, and the aux scalars are averaged over ``data``, so that every rank
+holds the global loss and applies the gradient of the global mean loss.
 """
 
 from __future__ import annotations
@@ -24,8 +30,10 @@ import math
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from deepcharuco_tpu_torch.models import Detector, RefineNet
 from deepcharuco_tpu_torch.ops.decode import soft_argmax_2d
@@ -86,11 +94,13 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def detector_loss_fn(det: Detector, images, loc_labels, ids_labels, train: bool = True,
                      conf_weight: float = 0.0, conf_margin: float = 4.0,
-                     conf_topk: int = 0, conf_fg_topk: int = 0):
+                     conf_topk: int = 0, conf_fg_topk: int = 0, mesh=None):
     """CE(loc) + CE(ids) [+ ``conf_weight``·conf]. ``train=True`` runs the
     model on batch statistics and updates its running ones. Returns
-    (loss, aux scalars, model outputs)."""
-    out = det(images, train=train)
+    (loss, aux scalars, model outputs). Under ``mesh`` the outputs are whole
+    grids of this rank's data shard (the detector gathers its trunk), so the
+    losses and the conf hinges' per-image top-k see whole images."""
+    out = det(images, train=train, mesh=mesh)
     loss_loc = _ce(out["loc"], loc_labels)
     loss_ids = _ce(out["ids"], ids_labels)
     loss = loss_loc + loss_ids
@@ -137,12 +147,12 @@ def _conf_loss(out, ids_labels, margin, topk, fg_topk):
 
 
 def refinenet_loss_fn(rn: RefineNet, patches, heatmaps, train: bool = True,
-                      coord_weight: float = 0.0, offset_weight: float = 0.0):
+                      coord_weight: float = 0.0, offset_weight: float = 0.0, mesh=None):
     """MSE on the heatmaps [+ ``coord_weight``·soft-argmax position error
     in image px + ``offset_weight``·offset-branch error]; the targets'
     positions come from soft-argmaxing the target Gaussians. Returns
     (loss, aux scalars, predicted heatmaps)."""
-    out = rn(patches, train=train)
+    out = rn(patches, train=train, mesh=mesh)
     heat = out["heat"] if isinstance(out, dict) else out
     loss = ((heat - heatmaps) ** 2).mean()
     aux = {"loss": loss}
@@ -164,34 +174,53 @@ def refinenet_loss_fn(rn: RefineNet, patches, heatmaps, train: bool = True,
 # Steps
 # ---------------------------------------------------------------------------
 
-def _update(state: TrainState, loss: torch.Tensor, aux) -> Tuple[TrainState, Dict]:
+def _update(state: TrainState, loss: torch.Tensor, aux,
+            mesh=None) -> Tuple[TrainState, Dict]:
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    aux = {k: v.detach() for k, v in aux.items()}
+    if mesh is not None:
+        # Each rank's loss is its data shard's mean, and the spatial gather's
+        # backward sums over 'spatial': the mean over all n_d·n_s ranks of
+        # their gradients is the gradient of the global mean loss.
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        scalars = torch.stack(list(aux.values()))
+        with record_function("parallel.grad_all_reduce"):
+            dist.all_reduce(flat, group=mesh.world)
+            dist.all_reduce(scalars, group=mesh.data)
+        flat /= mesh.size
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+        aux = dict(zip(aux, (scalars / mesh.shape["data"]).unbind(0)))
     state.optimizer.step()
     state.step += 1
-    return state, {k: v.detach() for k, v in aux.items()}
+    return state, aux
 
 
 def make_detector_train_step(conf_weight: float = 0.0, conf_margin: float = 4.0,
                              conf_topk: int = 0, conf_fg_topk: int = 0) -> Callable:
-    """``step(state, images, loc, ids) → (state, aux)``: one Adam step."""
-    def step(state: TrainState, images, loc_labels, ids_labels):
+    """``step(state, images, loc, ids, mesh=None) → (state, aux)``: one Adam
+    step."""
+    def step(state: TrainState, images, loc_labels, ids_labels, mesh=None):
         loss, aux, _ = detector_loss_fn(state.model, images, loc_labels, ids_labels,
                                         conf_weight=conf_weight, conf_margin=conf_margin,
-                                        conf_topk=conf_topk, conf_fg_topk=conf_fg_topk)
-        return _update(state, loss, aux)
+                                        conf_topk=conf_topk, conf_fg_topk=conf_fg_topk,
+                                        mesh=mesh)
+        return _update(state, loss, aux, mesh)
 
     return step
 
 
 def make_refinenet_train_step(coord_weight: float = 0.0,
                               offset_weight: float = 0.0) -> Callable:
-    """``step(state, patches, heatmaps) → (state, aux)``: one Adam step."""
-    def step(state: TrainState, patches, heatmaps):
+    """``step(state, patches, heatmaps, mesh=None) → (state, aux)``: one Adam
+    step."""
+    def step(state: TrainState, patches, heatmaps, mesh=None):
         loss, aux, _ = refinenet_loss_fn(state.model, patches, heatmaps,
                                          coord_weight=coord_weight,
-                                         offset_weight=offset_weight)
-        return _update(state, loss, aux)
+                                         offset_weight=offset_weight, mesh=mesh)
+        return _update(state, loss, aux, mesh)
 
     return step
 

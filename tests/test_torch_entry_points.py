@@ -2,8 +2,7 @@
 the benchmark's frame, ``cli.benchmark``'s ``main([..., "--device",
 "cpu"])`` on 64×96 frames with the options ``chip_smoke.py`` runs on the
 card, ``python -m deepcharuco_tpu_torch.bench``, the card as every entry
-point's default, the trainers' steps per second (fault C3) and the ROADMAP
-items the unported flags name."""
+point's default and the trainers' steps per second (fault C3)."""
 
 import dataclasses
 import functools
@@ -185,27 +184,3 @@ def test_c3_steps_per_sec_counts_the_checkpoint_write(small, monkeypatch, traine
         rows = [json.loads(line) for line in f]
     assert [r["step"] for r in rows] == [1, 2]
     assert 1.0 / rows[1]["steps_per_sec"] >= pause     # the second window holds a save
-
-
-def roadmap_items():
-    text = open(os.path.join(ROOT, "ROADMAP.md")).read()
-    section = text[text.index("### A."):text.index("### B.")]
-    return {int(n): title for n, title in re.findall(r"^(\d+)\. \*\*(.+?)\*\*", section,
-                                                     re.M)}
-
-
-REFUSALS = [
-    ("train", ["--device-synth", "--mesh-spatial", "2"], "data parallelism"),
-]
-
-
-@pytest.mark.parametrize("cli,flags,title", REFUSALS)
-def test_unported_flags_name_their_roadmap_item(small, cli, flags, title):
-    import importlib
-
-    _, base, _ = small
-    main = importlib.import_module(f"deepcharuco_tpu_torch.cli.{cli}").main
-    with pytest.raises(NotImplementedError) as e:
-        main(base + flags + ["--steps", "1"] if cli != "eval" else base + flags)
-    (item,) = re.findall(r"ROADMAP\.md §A, A(\d+)\)", str(e.value))
-    assert title in roadmap_items()[int(item)].lower(), (str(e.value), roadmap_items())

@@ -1,9 +1,9 @@
 """The port's two training CLIs on the CPU (``--device cpu``), on 64×96
 frames of the default board (a YAML config), for a couple of steps: the
 jsonl log and the top-k checkpoints are written, a checkpoint serves in
-``InferencePipeline``, ``--resume`` continues the global step, more than
-one card raises ``NotImplementedError`` and the options that need another
-one are refused."""
+``InferencePipeline``, ``--resume`` continues the global step, and the
+options that need another one are refused. Several ranks:
+``tests/test_torch_parallel.py``."""
 
 import functools
 import json
@@ -92,18 +92,6 @@ def test_refinenet_cli_trains_and_checkpoints(small, variant):
     assert files == ["optimizer.npz", "variables.npz"]
     keys = np.load(os.path.join(ckdir, name, "variables.npz")).files
     assert ("params/conv2c/conv/kernel" in keys) == (variant != "frame_patches")
-
-
-REFUSED = {
-    "several cards": ["--device-synth", "--mesh-spatial", "2"],
-}
-
-
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_detector_cli_refuses_what_is_not_ported(small, case):
-    _, base = small
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        det_cli.main(base + REFUSED[case] + ["--steps", "1"])
 
 
 def test_refinenet_cli_refusals(small):

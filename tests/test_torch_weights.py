@@ -119,7 +119,9 @@ def test_resolve_device_is_shared_by_pipeline_and_weights():
 def _port_sources():
     pkg = os.path.join(ROOT, "deepcharuco_tpu_torch")
     files = [os.path.join(dp, f) for dp, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
-    return sorted(os.path.relpath(f, ROOT) for f in files) + ["chip_smoke.py"]
+    # the mesh tests' rank worker runs in processes that must not import JAX
+    return sorted(os.path.relpath(f, ROOT) for f in files) + [
+        "chip_smoke.py", os.path.join("tests", "_torch_parallel_worker.py")]
 
 
 @pytest.mark.parametrize("rel", _port_sources())
@@ -162,5 +164,6 @@ def test_the_static_checks_cover_the_new_modules():
                  "cli/train_refinenet.py", "compat/__init__.py", "compat/torch_convert.py",
                  "utils.py", "pose_filter.py", "bench.py", "cli/benchmark.py",
                  "cli/infer.py", "cli/eval.py", "cli/pose_video.py", "calib.py",
-                 "data/png.py", "data/cvnp.py", "cli/calib_intrinsics.py", "cli/view.py"):
+                 "data/png.py", "data/cvnp.py", "cli/calib_intrinsics.py", "cli/view.py",
+                 "parallel/mesh.py", "parallel/collectives.py"):
         assert os.path.join("deepcharuco_tpu_torch", *want.split("/")) in rels
