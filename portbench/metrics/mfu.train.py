@@ -1,0 +1,16 @@
+"""The training step's share of the card's TF32 peak (the precision of the
+cell's convolutions): the detector's analytic forward and backward FLOPs per
+sample (``counts.train_sample_flops``) times the traced run's samples per
+second before the profiler starts, over 495 TFLOP/s. Read on the card only."""
+
+from portbench import counts
+
+
+def read(run):
+    if run.device.type != "cuda":
+        return None
+    rate = run.rate_before_trace(run.launched_at, run.p["batch"])
+    if rate is None:
+        return None
+    key = "tf32" if run.cfg["train"]["conv_tf32"] else run.cfg["train"]["param_dtype"]
+    return 100.0 * counts.train_sample_flops(run.cfg) * rate / counts.PEAK_FLOPS[key]
