@@ -197,6 +197,24 @@ class SmokeFailure(Exception):
     pass
 
 
+B1, B2 = "kernels.b1_launches", "kernels.b2_launches"
+
+
+def launch_counts():
+    """(B1, B2) launches since :func:`reset_launches`, from the port's
+    counters (``profiling``)."""
+    from deepcharuco_tpu_torch import profiling
+
+    c = profiling.counters()
+    return c.get(B1, 0), c.get(B2, 0)
+
+
+def reset_launches():
+    from deepcharuco_tpu_torch import profiling
+
+    profiling.reset(B1, B2)
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
@@ -418,18 +436,16 @@ def phase_fused(rng, dev, detector, folded, frames):
 def phase_main_path(pipes, fix):
     import torch
 
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
-
     frames = fix["frames"]
     ref_kp, ref_v, ref_r = (torch.from_numpy(fix[f"{k}_bf16"])
                             for k in ("keypoints", "valid", "refined"))
     for name, pipe in pipes.items():
-        cuda_decode.launches = cuda_fused.launches = 0
+        reset_launches()
         kp, v, r = (torch.from_numpy(a) for a in pipe.detect(frames))
         slot, coord = mismatch(kp, v, ref_kp, ref_v)
         agree = v & ref_v & ((kp - ref_kp).abs().amax(-1) == 0)
         near = float(((r - ref_r).abs().amax(-1) <= 0.125)[agree].float().mean())
-        counts = (cuda_decode.launches, cuda_fused.launches)
+        counts = launch_counts()
         log(f"phase 4 main path [{name}] vs JAX bf16: slot mismatch {slot:.4f}, coord "
             f"mismatch {coord:.4f}, |Δrefined|≤0.125 on {near:.4f} of {int(agree.sum())} "
             f"agreeing slots; launches decode/fused {counts}")
@@ -458,14 +474,12 @@ def make_batches(gray, count, rng, n=N):
 def phase_serve(pipes, frames, rng):
     import torch
 
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
-
     requests = 8
     batches = make_batches(frames, requests * len(pipes), rng)
     for pipe in pipes.values():          # warm-up: cuDNN plans, allocator
         pipe.detect(batches[0])
     torch.cuda.synchronize()
-    cuda_decode.launches = cuda_fused.launches = 0
+    reset_launches()
     serve = {}
     for i, (name, pipe) in enumerate(pipes.items()):
         t0 = time.perf_counter()
@@ -481,7 +495,7 @@ def phase_serve(pipes, frames, rng):
         log(f"phase 5 serve [{name}]: {requests} requests × {N} frames: "
             f"{serve[name]['fps']:.1f} fps, {serve[name]['ms_per_batch']:.3f} ms/batch, "
             f"{serve[name]['valid_per_frame']:.2f} corners/frame")
-    launches = {"decode": cuda_decode.launches, "fused_head_decode": cuda_fused.launches}
+    launches = {"decode": launch_counts()[0], "fused_head_decode": launch_counts()[1]}
     log(f"phase 5 launches on the main path: {launches}")
     require(all(v >= requests for v in launches.values()),
             f"a kernel of the main path was not launched: {launches}")
@@ -513,7 +527,6 @@ def phase_timing(dev, pipes, batch, folded, launches, errs):
         g = normalize_gray(torch.from_numpy(batch).to(dev))
         out = det(g)
         trunk = det(g, trunk_only=True)["trunk"]
-    saved = (cuda_decode.launches, cuda_fused.launches)
     m = HC * WC
     w512 = torch.cat([det.convPa.conv.weight, det.convDa.conv.weight]).contiguous(
         memory_format=torch.channels_last)
@@ -574,7 +587,6 @@ def phase_timing(dev, pipes, batch, folded, launches, errs):
             log(f"phase 6 yardsticks N={n} on the same trunk: unfused route (cuDNN heads + "
                 f"decode kernel) {unfused:.4f} ms, cuDNN 3×3 conv to 512 channels "
                 f"{conv512:.4f} ms (neither computes B2's whole function)")
-    cuda_decode.launches, cuda_fused.launches = saved
     return rows, yard
 
 
@@ -632,15 +644,14 @@ def pose_agrees(name, out, ref, good_slots=None, rad=0.02, rel=0.02, px=None,
 def phase_pose_fixture(pipes, fix, dev):
     import torch
 
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
     from deepcharuco_tpu_torch.pipeline import Camera
     from deepcharuco_tpu_torch.pnp import solve_pnp_batch
 
     ref = stored(fix, "bf16")
     for name, pipe in pipes.items():
-        cuda_decode.launches = cuda_fused.launches = 0
+        reset_launches()
         out = pipe.detect_with_pose(fix["frames"])
-        counts = (cuda_decode.launches, cuda_fused.launches)
+        counts = launch_counts()
         require(len(out) == 7, f"[{name}] detect_with_pose returned {len(out)} arrays")
         good = corners_agree(f"phase 7 pose path [{name}] vs JAX bf16", out, ref)
         pose_agrees(f"phase 7 pose path [{name}] vs JAX bf16", out, ref, good)
@@ -723,7 +734,7 @@ def host_and_wall_ms(fn, repeats: int = 3):
 def phase_pose_serve(pipes, hi_pipe, fix, rng, dev, detect_serve):
     import torch
 
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused, extract_patches
+    from deepcharuco_tpu_torch.ops import extract_patches
     from deepcharuco_tpu_torch.pipeline import full_forward, two_stage_forward
     from deepcharuco_tpu_torch.pnp import solve_pnp_batch
 
@@ -732,7 +743,7 @@ def phase_pose_serve(pipes, hi_pipe, fix, rng, dev, detect_serve):
     for pipe in pipes.values():          # warm-up: the pose tail's graph is captured here
         pipe.detect_with_pose(batches[0])
     torch.cuda.synchronize()
-    cuda_decode.launches = cuda_fused.launches = 0
+    reset_launches()
     pose = {}
     for i, (name, pipe) in enumerate(pipes.items()):
         t0 = time.perf_counter()
@@ -754,7 +765,7 @@ def phase_pose_serve(pipes, hi_pipe, fix, rng, dev, detect_serve):
             f"(detect alone, phase 5: {detect_serve[name]['ms_per_batch']:.3f}), "
             f"ok on {pose[name]['ok_share']:.3f} of the frames")
         require(n_ok >= N * requests // 2, f"[{name}] the pose path solved too few frames")
-    launches = {"decode": cuda_decode.launches, "fused_head_decode": cuda_fused.launches}
+    launches = {"decode": launch_counts()[0], "fused_head_decode": launch_counts()[1]}
     log(f"phase 9 launches on the pose path: {launches}")
     require(all(v >= requests for v in launches.values()),
             f"a kernel of the pose path was not launched: {launches}")
@@ -867,7 +878,6 @@ def ms_per_batch(fn, batches):
 def phase_geom(cfg, pipes, fix, rng, dev):
     import torch
 
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
     from deepcharuco_tpu_torch.pipeline import (Camera, load_pipeline, two_stage_forward,
                                                 two_stage_forward_hires)
 
@@ -895,9 +905,9 @@ def phase_geom(cfg, pipes, fix, rng, dev):
                     return_filled=True, device=dev, **pipe._geom)[3]
             filled = filled.cpu().numpy()
             ref = stored(fix, tag, POSE_KEYS + ("filled",))
-            cuda_decode.launches = cuda_fused.launches = 0
+            reset_launches()
             out = pipe.detect_with_pose(frames)
-            require((cuda_decode.launches, cuda_fused.launches) == (0, 0),
+            require(launch_counts() == (0, 0),
                     f"{name}: the geometry decode launched a one-slot decode kernel")
             same_fill = float((filled == ref[7]).mean())
             log(f"{name}: filled equal on {same_fill:.4f} of the slots "
@@ -946,7 +956,6 @@ def phase_int8(cfg, pipes, fix, rng, dev):
     import torch
 
     from deepcharuco_tpu_torch.models.quant import QuantDetector, qvars_from_npz
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
     from deepcharuco_tpu_torch.ops.image import normalize_gray
     from deepcharuco_tpu_torch.pipeline import load_pipeline
 
@@ -974,9 +983,9 @@ def phase_int8(cfg, pipes, fix, rng, dev):
     # activations between them are: no epilogue value flipped
     log("phase 11 int8 epilogue: 0 activations flipped between the card and the CPU "
         "(every next layer's accumulators are equal)")
-    cuda_decode.launches = cuda_fused.launches = 0
+    reset_launches()
     out = pipe.detect(fix["frames"])
-    require((cuda_decode.launches, cuda_fused.launches) == (1, 0),
+    require(launch_counts() == (1, 0),
             "the int8 path did not decode through the decode kernel")
     corners_agree("phase 11 int8 detect vs the JAX int8 pipeline (bf16 RefineNet)", out,
                   stored(fix, "int8", POSE_KEYS[:3]))
@@ -998,9 +1007,9 @@ def phase_int8(cfg, pipes, fix, rng, dev):
     peak_gib = {}
     for _ in range(2):
         for name, p in (("bf16", bf16), ("int8", pipe)):
-            cuda_decode.launches = 0
+            reset_launches()
             ms[name].append(ms_per_batch(p.detect, batches[1:]))
-            launches += cuda_decode.launches if name == "int8" else 0
+            launches += launch_counts()[0] if name == "int8" else 0
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -1079,7 +1088,6 @@ def phase_streams(pipes, geom_pipes, fix, rng, dev):
     import torch
 
     from deepcharuco_tpu_torch import serving
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
     from deepcharuco_tpu_torch.serving import (RESULT_KEYS, DeviceQueueServer, StreamServer,
                                                VideoStream, pipelined_map)
 
@@ -1106,9 +1114,9 @@ def phase_streams(pipes, geom_pipes, fix, rng, dev):
                 "pipelined_map": lambda: list(pipelined_map(
                     lambda x: pipe.forward_device(x, with_pose), batches, device=dev)),
             }
-            cuda_decode.launches = cuda_fused.launches = 0
+            reset_launches()
             got = {k: run() for k, run in runs.items()}     # also the warm-up
-            launches[tag] = (cuda_decode.launches, cuda_fused.launches)
+            launches[tag] = launch_counts()
             require(len(got["StreamServer"]) == steps
                     and len(got["DeviceQueueServer"]) == steps * chunk
                     and len(got["pipelined_map"]) == steps, f"[{tag}] wrong number of steps")
@@ -1352,7 +1360,6 @@ def phase_train_clis(cfg, fix, dev):
 
     from deepcharuco_tpu_torch.cli import train as det_cli
     from deepcharuco_tpu_torch.cli import train_refinenet as rn_cli
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
     from deepcharuco_tpu_torch.pipeline import load_pipeline
 
     torch.backends.cudnn.allow_tf32 = True
@@ -1360,11 +1367,11 @@ def phase_train_clis(cfg, fix, dev):
     try:
         common = ["--device-synth", "--eval-every", "20", "--eval-batches", "2",
                   "--fused-steps", "4", "--ckpt-dir", os.path.join(tmp, "ck")]
-        cuda_decode.launches = cuda_fused.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         det_cli.main(common + ["--steps", "40", "--logdir", os.path.join(tmp, "tb")])
         wall = time.perf_counter() - t0
-        launches = cuda_decode.launches
+        launches = launch_counts()[0]
         rows = jsonl_rows(os.path.join(tmp, "tb"))
         with open(os.path.join(tmp, "ck", "index.json")) as f:
             index = json.load(f)
@@ -1375,11 +1382,11 @@ def phase_train_clis(cfg, fix, dev):
                         f"{r['val_loss']:.4f} match {r['val_match_ratio']:.3f} "
                         f"{r['steps_per_sec']:.2f} dispatches/s" for r in rows)
             + f"; checkpoints {sorted(index)}; decode kernel launches {launches}, fused "
-            f"{cuda_fused.launches}")
+            f"{launch_counts()[1]}")
         require([r["step"] for r in rows] == [20, 40], "cli.train logged the wrong steps")
         require(all(np.isfinite(r[k]) for r in rows for k in r), "cli.train: non-finite scalars")
         require(sorted(index) == ["step_0000080", "step_0000160"], "cli.train: checkpoints")
-        require(launches == 4 and cuda_fused.launches == 0,
+        require(launches == 4 and launch_counts()[1] == 0,
                 f"cli.train eval launched the decode kernel {launches} times, expected 4")
         pipe = load_pipeline(cfg, os.path.join(tmp, "ck", "step_0000160", "variables.npz"), RN,
                              device=dev)
@@ -1515,15 +1522,11 @@ class Launches:
         self.total, self.runs, self.name = total, runs, name
 
     def __enter__(self):
-        from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
-
-        cuda_decode.launches = cuda_fused.launches = 0
+        reset_launches()
         return self
 
     def __exit__(self, *exc):
-        from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
-
-        self.counts = (cuda_decode.launches, cuda_fused.launches)
+        self.counts = launch_counts()
         self.runs[self.name] = self.counts
         self.total["decode"] += self.counts[0]
         self.total["fused_head_decode"] += self.counts[1]
@@ -1837,14 +1840,13 @@ def phase_host_clis(cfg, dev):
     from deepcharuco_tpu_torch.cli import quantize as quant_cli
     from deepcharuco_tpu_torch.cli import train as det_cli
     from deepcharuco_tpu_torch.cli import train_refinenet as rn_cli
-    from deepcharuco_tpu_torch.ops import cuda_decode
     from deepcharuco_tpu_torch.pipeline import load_pipeline
 
     torch.backends.cudnn.allow_tf32 = True
     tmp = tempfile.mkdtemp(prefix="chip_smoke_host_")
     out = {}
     try:
-        cuda_decode.launches = 0
+        reset_launches()
         runs = {
             "host": ["--steps", "6", "--eval-every", "3", "--eval-host-batches", "2"],
             "mixed": ["--device-synth", "--bg-bank", "8", "--mixed-host-every", "3",
@@ -1888,7 +1890,7 @@ def phase_host_clis(cfg, dev):
         require(res["samples"] == 64 and res["n_target"] > 0 and res["raw_mean"] is not None
                 and np.isfinite(res["refined_mean"]), "cli.eval --source host")
         out["eval host"] = res
-        launches = cuda_decode.launches
+        launches = launch_counts()[0]
         log(f"phase 15 B1 launches on the host-fed paths: {launches}")
         # one per eval batch: host run 2 evals × 2, mixed run 2 × (2 + 2 host), eval 4
         require(launches == 4 + 8 + 4, f"B1 launched {launches} times on the host paths, "
@@ -2035,20 +2037,19 @@ def phase_calib(cfg, fix, dev, tmp):
     from deepcharuco_tpu_torch import calib
     from deepcharuco_tpu_torch.cli import calib_intrinsics as calib_cli
     from deepcharuco_tpu_torch.data import cvnp, png
-    from deepcharuco_tpu_torch.ops import cuda_decode
 
     out, launches = {}, {}
     K_true = fix["calib/K_true"]
     for name, key in (("clean", "calib/views"), ("clean again", "calib/views"),
                       ("dark", "calib/dark")):
         ref = name.split()[0]
-        cuda_decode.launches = 0
+        reset_launches()
         timings = {}
         t0 = time.perf_counter()
         K, dist, err, used = calib_cli.charuco_calibrate(
             fix[key], cfg, DET, RN32, verbose=False, device=dev, timings=timings)
         wall = time.perf_counter() - t0
-        launches[f"charuco_calibrate {name}"] = cuda_decode.launches
+        launches[f"charuco_calibrate {name}"] = launch_counts()[0]
         K_jax = fix[f"calib/{ref}/K"]
         share = max(abs(K[i, i] - K_jax[i, i]) / K_jax[i, i] for i in (0, 1))
         c_px = max(abs(K[i, 2] - K_jax[i, 2]) for i in (0, 1))
@@ -2060,7 +2061,7 @@ def phase_calib(cfg, fix, dev, tmp):
             "jax_views_used": int(fix[f"calib/{ref}/used"]), "fxfy_share_vs_jax": float(share),
             "cxcy_px_vs_jax": float(c_px), "detect_ms_per_view": 1e3 * timings["detect_s"] / n,
             "solve_ms": 1e3 * timings["solve_s"], "wall_s": wall,
-            "b1_launches": cuda_decode.launches}
+            "b1_launches": launch_counts()[0]}
         log(f"phase 16 charuco_calibrate ({name}, {n} views of {fix[key].shape[1]}x"
             f"{fix[key].shape[2]}, 32-px RefineNet, avg, bf16, batch 16): {used} views, "
             f"K {np.round(K[[0, 1, 0, 1], [0, 1, 2, 2]], 3).tolist()}, error {err:.4f} px "
@@ -2068,9 +2069,9 @@ def phase_calib(cfg, fix, dev, tmp):
             f"views); fx/fy {share:.2e} and cx/cy {c_px:.3f} px from JAX's K; detection "
             f"{1e3 * timings['detect_s'] / n:.2f} ms per view, solver "
             f"{1e3 * timings['solve_s']:.1f} ms, {wall:.2f} s in all; B1 launches "
-            f"{cuda_decode.launches}")
+            f"{launch_counts()[0]}")
         if dev.type == "cuda":
-            require(cuda_decode.launches >= 1, f"charuco_calibrate ({name}) did not launch B1")
+            require(launch_counts()[0] >= 1, f"charuco_calibrate ({name}) did not launch B1")
         if ref == "clean":
             _true_camera_limits(f"charuco_calibrate ({name})", K, K_true)
             require(used == int(fix["calib/clean/used"]), "views used differ from JAX's")
@@ -2089,21 +2090,21 @@ def phase_calib(cfg, fix, dev, tmp):
     os.makedirs(views)
     for i, f in enumerate(fix["calib/views"]):
         png.write_png(os.path.join(views, f"v_{i:03d}.png"), f)
-    cuda_decode.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     calib_cli.main([views, "--charuco", "--deepc", DET, "--refinenet", RN32, "--out",
                     os.path.join(tmp, "cam.npz")] + ([] if dev.type == "cuda" else
                                                       ["--device", str(dev)]))
     wall = time.perf_counter() - t0
-    launches["cli.calib_intrinsics --charuco"] = cuda_decode.launches
+    launches["cli.calib_intrinsics --charuco"] = launch_counts()[0]
     with np.load(os.path.join(tmp, "cam.npz")) as z:
         K_cli = z["camera_matrix"]
     gap = float(np.abs(K_cli - K_clean).max() / K_clean[0, 0])
     log(f"phase 16 cli.calib_intrinsics --charuco on the port's PNGs: {wall:.2f} s; "
         f"camera_params.npz K {gap:.2e} of fx from the charuco_calibrate call's "
-        f"(bit-equal: {gap == 0.0}); B1 launches {cuda_decode.launches}")
+        f"(bit-equal: {gap == 0.0}); B1 launches {launch_counts()[0]}")
     require(gap <= 1e-6, "the CLI's camera_params.npz differs from charuco_calibrate's")
-    out["cli charuco"] = {"wall_s": wall, "K_gap": gap, "b1_launches": cuda_decode.launches}
+    out["cli charuco"] = {"wall_s": wall, "K_gap": gap, "b1_launches": launch_counts()[0]}
 
     for name in ("chess", "tilted"):
         frames = fix[f"calib/{name}/frames"]
@@ -2145,7 +2146,6 @@ def phase_view(cfg, dev, tmp):
     from deepcharuco_tpu_torch import board as B
     from deepcharuco_tpu_torch.cli import view as view_cli
     from deepcharuco_tpu_torch.data import CharucoDataset, png
-    from deepcharuco_tpu_torch.ops import cuda_decode
     from deepcharuco_tpu_torch.pipeline import load_pipeline
 
     out, launches = {}, {}
@@ -2154,7 +2154,7 @@ def phase_view(cfg, dev, tmp):
     view_cli._tile = lambda cells, cols: drawn.append(tile(cells, cols)) or drawn[-1]
     try:
         for what in ("dataset", "refine", "predictions"):
-            cuda_decode.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             paths = view_cli.main(["--what", what, "--pages", "1", "--validation", "--deepc",
                                    DET, "--refinenet", RN, "--out", os.path.join(tmp, what)]
@@ -2162,12 +2162,12 @@ def phase_view(cfg, dev, tmp):
             wall = time.perf_counter() - t0
             page = png.read_png(paths[0])
             same = np.array_equal(page, drawn[-1])
-            launches[f"cli.view {what}"] = cuda_decode.launches
+            launches[f"cli.view {what}"] = launch_counts()[0]
             out[what] = {"wall_s": wall, "page_shape": list(page.shape),
-                         "b1_launches": cuda_decode.launches}
+                         "b1_launches": launch_counts()[0]}
             log(f"phase 16 cli.view --what {what} (16 per page, no cv2): {wall:.2f} s per "
                 f"page, {page.shape[1]}x{page.shape[0]} page read back equal to the grid: "
-                f"{same}; B1 launches {cuda_decode.launches}")
+                f"{same}; B1 launches {launch_counts()[0]}")
             require(same, f"cli.view {what}: the page read back differs from the grid drawn")
     finally:
         view_cli._tile = tile
@@ -2308,7 +2308,6 @@ def phase_parallel_world1(cfg, fix, dev, pipes, batch):
     import torch.distributed as dist
 
     from deepcharuco_tpu_torch.data import DeviceSynthesizer
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
     from deepcharuco_tpu_torch.parallel import (init_distributed, make_mesh, shard_batch,
                                                 sharded_inference, sharded_train_step)
     from deepcharuco_tpu_torch.train import create_detector_state, make_detector_train_step
@@ -2326,10 +2325,10 @@ def phase_parallel_world1(cfg, fix, dev, pipes, batch):
             run = sharded_inference(fn, mesh)
             for tag, frames in (("fixture", fix["frames"]), (f"batch of {N}", batch)):
                 want = fn(det, rn, frames)
-                cuda_decode.launches = cuda_fused.launches = 0
+                reset_launches()
                 got = run(det, rn, frames)
                 torch.cuda.synchronize()
-                counts = (cuda_decode.launches, cuda_fused.launches)
+                counts = launch_counts()
                 launches["decode"] += counts[0]
                 launches["fused_head_decode"] += counts[1]
                 same = _same(got, want)
@@ -2559,7 +2558,6 @@ def ranks_worker(tmp) -> int:
     from deepcharuco_tpu_torch import _build
     from deepcharuco_tpu_torch.configs import default_config
     from deepcharuco_tpu_torch.data import DeviceSynthesizer
-    from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
     from deepcharuco_tpu_torch.parallel import (init_distributed, make_mesh,
                                                 sharded_inference, sharded_train_step)
     from deepcharuco_tpu_torch.pipeline import InferencePipeline, two_stage_forward
@@ -2601,12 +2599,12 @@ def ranks_worker(tmp) -> int:
             run(pipe.detector, pipe.refinenet, batch)            # warm-up
             torch.cuda.synchronize()
             dist.barrier()
-            cuda_decode.launches = cuda_fused.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             kp, valid, refined = run(pipe.detector, pipe.refinenet, batch)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
-            counts = {"decode": cuda_decode.launches, "fused_head_decode": cuda_fused.launches}
+            counts = {"decode": launch_counts()[0], "fused_head_decode": launch_counts()[1]}
             for k, v in counts.items():
                 report["launches"][k] += v
             report[f"infer {tag} {name}"] = {"ms": ms, "launches": counts}

@@ -6,7 +6,8 @@ into its own shared library with a plain C interface, under
 library's file name carries a hash of the sources (the ``.cu`` and every
 ``.cuh`` beside it) and of the flags, so an edit rebuilds and an unchanged
 tree reuses the last build. A failed compile raises with nvcc's output.
-Nothing here runs at import time.
+Nothing here runs at import time. Each nvcc process started adds one to
+the counter ``build.nvcc_compiles`` (``profiling``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from deepcharuco_tpu_torch import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -61,6 +64,7 @@ def _start(name: str):
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
+    profiling.count("build.nvcc_compiles")
     return out, (proc, tmp)
 
 

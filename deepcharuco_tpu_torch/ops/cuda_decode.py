@@ -8,6 +8,8 @@ Invalid slots hold (0, 0).
 
 :func:`decode` launches the kernel for CUDA tensors and runs
 :func:`decode_plain` for CPU tensors; nothing else chooses between them.
+Each launch adds one to the counter ``kernels.b1_launches``
+(``profiling``).
 
 Both kernels reduce the per-id winner across blocks through one 64-bit key
 per claim (``csrc/decode_common.cuh``). :func:`winner_keys_plain` states
@@ -23,9 +25,7 @@ from typing import Optional
 
 import torch
 
-from deepcharuco_tpu_torch import _build
-
-launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+from deepcharuco_tpu_torch import _build, profiling
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -125,7 +125,6 @@ def decode(loc_hat: torch.Tensor, ids_hat: torch.Tensor, n_ids: int,
     """Launch the decode kernel on the current stream (CUDA tensors), or run
     :func:`decode_plain` (CPU tensors). Grids of 2**24 cells or more are
     refused on either device."""
-    global launches
     n, hc, wc, cl = loc_hat.shape
     if cl != 65 or ids_hat.shape != (n, hc, wc, n_ids + 1) or not 0 < n_ids < 32:
         raise ValueError(f"decode: bad shapes loc {tuple(loc_hat.shape)}, "
@@ -151,5 +150,5 @@ def decode(loc_hat: torch.Tensor, ids_hat: torch.Tensor, n_ids: int,
                     torch.cuda.current_stream(dev).cuda_stream)
     if status != 0:
         raise RuntimeError(f"decode kernel: {_build.error_string(lib, status)}")
-    launches += 1
+    profiling.count("kernels.b1_launches")
     return kpts, valid

@@ -13,6 +13,8 @@ between them. The kernel reads the weights in the layout of
 transposed and padded), packed once on the host; :func:`unpack_head_weights`
 is its inverse. :func:`head_params` gives both the fold and the packing, as
 the wrapper takes them.
+Each launch adds one to the counter ``kernels.b2_launches``
+(``profiling``).
 """
 
 from __future__ import annotations
@@ -24,10 +26,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from deepcharuco_tpu_torch import _build
+from deepcharuco_tpu_torch import _build, profiling
 from deepcharuco_tpu_torch.ops.cuda_decode import check_cells, decode_plain
-
-launches = 0  # kernel launches since the last reset (see chip_smoke.py)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -153,7 +153,6 @@ def fused_head_decode(trunk: torch.Tensor, folded: Dict[str, torch.Tensor],
     :func:`head_params` on the trunk's device: the kernel reads its
     :func:`pack_head_params` keys, the plain version the fold's. Grids of
     2**24 cells or more are refused on either device."""
-    global launches
     n, hc, wc, cin = trunk.shape
     check_cells(hc, wc)
     if not trunk.is_cuda:
@@ -191,5 +190,5 @@ def fused_head_decode(trunk: torch.Tensor, folded: Dict[str, torch.Tensor],
                     torch.cuda.current_stream(dev).cuda_stream)
     if status != 0:
         raise RuntimeError(f"fused head kernel: {_build.error_string(lib, status)}")
-    launches += 1
+    profiling.count("kernels.b2_launches")
     return kpts, valid

@@ -14,16 +14,17 @@ only: gloo takes CUDA tensors for ``broadcast``, ``all_reduce`` and
 NCCL, under gloo on the CPU and under gloo on the card. Every rank of a
 group must call the same collectives in the same order, in the forward and
 in the backward pass, which holds when every rank runs the same program.
-Each collective runs in a profiler span (``parallel.all_reduce``,
-``parallel.all_gather``; the train step's gradient average is
-``parallel.grad_all_reduce``).
+Each collective runs in a span of the port's recorder (``profiling``:
+``parallel.all_reduce``, ``parallel.all_gather``; the train step's gradient
+average is ``parallel.grad_all_reduce``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from deepcharuco_tpu_torch import profiling
 
 
 class _AllReduce(torch.autograd.Function):
@@ -31,14 +32,14 @@ class _AllReduce(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
-        with record_function("parallel.all_reduce"):
+        with profiling.span("parallel.all_reduce"):
             dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        with record_function("parallel.all_reduce"):
+        with profiling.span("parallel.all_reduce"):
             dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
@@ -49,7 +50,7 @@ class _AllGather(torch.autograd.Function):
         x = x.contiguous()
         n = dist.get_world_size(group)
         parts = [torch.empty_like(x) for _ in range(n)]
-        with record_function("parallel.all_gather"):
+        with profiling.span("parallel.all_gather"):
             dist.all_gather(parts, x, group=group)
         ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
         ctx.index = dist.get_group_rank(group, dist.get_rank()) if group is not None \
@@ -59,7 +60,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        with record_function("parallel.all_reduce"):
+        with profiling.span("parallel.all_reduce"):
             dist.all_reduce(grad, group=ctx.group)
         return grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
 

@@ -33,6 +33,13 @@ read the detector's logits, so both decode through the decode kernel and
 refuse ``fused_head=True``. An orbax checkpoint directory of the JAX
 trainers is JAX's format: :func:`load_model_variables` refuses it and names
 the conversion.
+
+Spans (``profiling``): ``pipeline.detector``, ``pipeline.decode``,
+``pipeline.patches``, ``pipeline.refinenet`` around each stage's enqueue,
+and ``pipeline.pose`` around :meth:`InferencePipeline.solve_pose` (on the
+card with events on the stream: the copy into the graph's inputs and the
+replay). Counters: ``pipeline.frames`` through
+:meth:`InferencePipeline.forward_device`, ``pipeline.pose_captures``.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from deepcharuco_tpu_torch import profiling
 from deepcharuco_tpu_torch._device import resolve_device
 from deepcharuco_tpu_torch.board import inner_corner_object_points
 from deepcharuco_tpu_torch.configs import Config
@@ -186,10 +194,14 @@ def _decode(detector, g: torch.Tensor, n_ids: int, min_margin,
         if folded is None:
             folded = head_params(detector_variables(detector.state_dict()), n_ids,
                                  g.device)
-        trunk = detector(g, trunk_only=True)["trunk"]
-        return fused_head_decode(trunk, folded, n_ids, min_margin)
-    out = detector(g)
-    return pred_to_keypoints(out["loc"], out["ids"], n_ids, min_margin=min_margin)
+        with profiling.span("pipeline.detector"):
+            trunk = detector(g, trunk_only=True)["trunk"]
+        with profiling.span("pipeline.decode"):
+            return fused_head_decode(trunk, folded, n_ids, min_margin)
+    with profiling.span("pipeline.detector"):
+        out = detector(g)
+    with profiling.span("pipeline.decode"):
+        return pred_to_keypoints(out["loc"], out["ids"], n_ids, min_margin=min_margin)
 
 
 def _decode_geom(detector, g: torch.Tensor, n_ids: int, min_margin, board_xy,
@@ -201,13 +213,15 @@ def _decode_geom(detector, g: torch.Tensor, n_ids: int, min_margin, board_xy,
     board_xy = torch.as_tensor(board_xy, dtype=torch.float32).to(dev)
     if noise is not None:
         noise = tuple(torch.as_tensor(t, dtype=torch.float32).to(dev) for t in noise)
-    out = detector(g)
-    keypoints, valid = pred_to_keypoints_geom(out["loc"], out["ids"], n_ids, board_xy,
-                                              min_margin=min_margin,
-                                              ransac_subsets=ransac, noise=noise)
-    if not fill:
-        return keypoints, valid, torch.zeros_like(valid)
-    return fill_from_homography(keypoints, valid, board_xy, tuple(g.shape[1:3]))
+    with profiling.span("pipeline.detector"):
+        out = detector(g)
+    with profiling.span("pipeline.decode"):
+        keypoints, valid = pred_to_keypoints_geom(out["loc"], out["ids"], n_ids, board_xy,
+                                                  min_margin=min_margin,
+                                                  ransac_subsets=ransac, noise=noise)
+        if not fill:
+            return keypoints, valid, torch.zeros_like(valid)
+        return fill_from_homography(keypoints, valid, board_xy, tuple(g.shape[1:3]))
 
 
 def _trust_fills(refined: torch.Tensor, keypoints: torch.Tensor,
@@ -272,10 +286,12 @@ def two_stage_forward(detector, refinenet: Optional[RefineNet], frames,
     g = _to_gray_input(torch.as_tensor(frames).to(dev, non_blocking=True))
     filled = None
     if decode_capacity > 1:
-        out = detector(g)
-        kp_k, valid = pred_to_keypoints_topk(out["loc"], out["ids"], n_ids,
-                                             capacity=decode_capacity,
-                                             min_margin=min_margin)
+        with profiling.span("pipeline.detector"):
+            out = detector(g)
+        with profiling.span("pipeline.decode"):
+            kp_k, valid = pred_to_keypoints_topk(out["loc"], out["ids"], n_ids,
+                                                 capacity=decode_capacity,
+                                                 min_margin=min_margin)
         keypoints = kp_k.reshape(kp_k.shape[0], n_ids * decode_capacity, 2)
     elif geom:
         keypoints, valid, filled = _decode_geom(detector, g, n_ids, min_margin,
@@ -289,11 +305,13 @@ def two_stage_forward(detector, refinenet: Optional[RefineNet], frames,
     if refinenet is None:
         refined = keypoints = keypoints.reshape(out_shape)
     else:
-        patches = extract_patches(g, keypoints, patch_size=refinenet.patch_size)
+        with profiling.span("pipeline.patches"):
+            patches = extract_patches(g, keypoints, patch_size=refinenet.patch_size)
         mode = rn_decode or ("soft" if soft_refine else "hard")
-        refined = _apply_refiner(refinenet, patches, keypoints, mode)
-        if geom_fill:
-            refined = _trust_fills(refined, keypoints, filled)
+        with profiling.span("pipeline.refinenet"):
+            refined = _apply_refiner(refinenet, patches, keypoints, mode)
+            if geom_fill:
+                refined = _trust_fills(refined, keypoints, filled)
         keypoints, refined = keypoints.reshape(out_shape), refined.reshape(out_shape)
     return (keypoints, valid, refined, filled) if return_filled else \
         (keypoints, valid, refined)
@@ -341,11 +359,13 @@ def two_stage_forward_hires(detector, refinenet: RefineNet, frames_hi,
         keypoints, valid = _decode(detector, g_lo, n_ids, min_margin, fused_head, folded)
         filled = torch.zeros_like(valid)
     kp_hi = float(scale) * keypoints            # integer patch centers, hi-res frame
-    patches = extract_patches(g_hi, kp_hi, patch_size=refinenet.patch_size)
-    refined_hi = _apply_refiner(refinenet, patches, kp_hi, rn_decode)
-    refined = (refined_hi - (scale - 1) * 0.5) / scale
-    if geom_fill:
-        refined = _trust_fills(refined, keypoints, filled)
+    with profiling.span("pipeline.patches"):
+        patches = extract_patches(g_hi, kp_hi, patch_size=refinenet.patch_size)
+    with profiling.span("pipeline.refinenet"):
+        refined_hi = _apply_refiner(refinenet, patches, kp_hi, rn_decode)
+        refined = (refined_hi - (scale - 1) * 0.5) / scale
+        if geom_fill:
+            refined = _trust_fills(refined, keypoints, filled)
     return (keypoints, valid, refined, filled) if return_filled else \
         (keypoints, valid, refined)
 
@@ -622,6 +642,7 @@ class InferencePipeline:
             geom_fill=geom_fill, geom_ransac=geom_ransac,
             geom_noise=None if geom_noise is None else tuple(as_dev(t) for t in geom_noise))
         self._pose_graphs: Dict[int, tuple] = {}
+        profiling.anchor(self.device)
         if camera is not None:
             cam = camera.scaled(1.0 / self.hires_scale) if hires else camera
             self._K, self._dist = as_dev(cam.K), as_dev(cam.dist)
@@ -661,7 +682,8 @@ class InferencePipeline:
         solve = lambda r, v: _solve(self.object_points, r, v, self._K, self._dist,
                                     self.pnp_iters)
         if refined.device.type != "cuda":
-            return solve(refined, valid)
+            with profiling.span("pipeline.pose"):
+                return solve(refined, valid)
         n = refined.shape[0]
         entry = self._pose_graphs.pop(n, None)
         if entry is None:
@@ -671,15 +693,17 @@ class InferencePipeline:
                 entry = self._capture_pose(solve, refined, valid)
         self._pose_graphs[n] = entry                            # newest last
         graph, r_in, v_in, out = entry
-        r_in.copy_(refined)
-        v_in.copy_(valid)
-        graph.replay()
+        with profiling.span("pipeline.pose", device=True):
+            r_in.copy_(refined)
+            v_in.copy_(valid)
+            graph.replay()
         return out
 
     @staticmethod
     def _capture_pose(solve, refined, valid):
         """(graph, its two input buffers, its outputs) of ``solve`` at the
         shapes of ``refined``/``valid``, captured on the current device."""
+        profiling.count("pipeline.pose_captures")
         r_in, v_in = torch.zeros_like(refined), torch.zeros_like(valid)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -705,6 +729,7 @@ class InferencePipeline:
         next call."""
         if with_pose and self.camera is None:
             raise ValueError("InferencePipeline was built without a Camera")
+        profiling.count("pipeline.frames", len(frames))
         common = dict(min_margin=self.min_margin, rn_decode=self.rn_decode,
                       fused_head=self.fused_head, folded=self.folded,
                       return_filled=True, device=self.device, **self._geom)

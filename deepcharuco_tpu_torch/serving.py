@@ -28,16 +28,31 @@ buffers of one CUDA graph (``InferencePipeline.solve_pose``), which the
 next batch's replay overwrites, so they are copied out before it in stream
 order. Handing a batch out waits on its event and on nothing else. On the
 CPU the same code runs without streams.
+
+Spans (``profiling``), one set per step or batch, under its id:
+``serving.step`` from the first pull to the hand-out, its device end the
+download's event (the results ready on the host); under it
+``serving.pull`` (frames from the sources: the wait for the cameras),
+``serving.stage`` (the gather into pinned staging, its wait for the buffer
+included, and the upload's enqueue), ``serving.launch`` (the pipeline's
+enqueue and the downloads'; on the card its start event is the step's first
+work on the compute stream) and ``serving.fetch`` (the host blocked on the
+results). A server launches step k+1 before it fetches step k, so step
+k+1's pull, stage and launch fall inside step k's ``serving.step``.
+Counters: ``serving.steps`` handed out, ``serving.rows`` of frames and
+``serving.padded_rows`` of padding.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from deepcharuco_tpu_torch import profiling
 from deepcharuco_tpu_torch._device import resolve_device
 
 # Peak bytes of device memory per input pixel that served two-stage batches
@@ -108,6 +123,7 @@ class _Lane:
         self._staging: List[Optional[torch.Tensor]] = [None] * depth
         self._uploaded: List[Optional["torch.cuda.Event"]] = [None] * depth
         self._copy_stream = torch.cuda.Stream(self.device) if self.cuda else None
+        profiling.anchor(self.device)
 
     def stage(self, shape: Tuple[int, ...], dtype) -> np.ndarray:
         """The next staging buffer as a numpy array to gather frames into
@@ -148,9 +164,22 @@ class _Lane:
             return list(outs), None
         with torch.cuda.device(self.device):
             host = [t.to("cpu", non_blocking=True) for t in outs]     # pinned
-            done = torch.cuda.Event()
+            # the step's results-ready mark, read against the spans' events:
+            # timing, and a torch.Event like theirs
+            done = torch.Event("cuda", enable_timing=True)
             done.record()
         return host, done
+
+    def launch(self, step: "profiling.Span", fn: Callable, *args):
+        """``fn(*args)`` and its outputs' downloads, enqueued under
+        ``step``'s ``serving.launch``; the download's event becomes
+        ``step``'s device end. Returns (the outputs, what :meth:`fetch`
+        takes)."""
+        with step.child("serving.launch", device=self.cuda):
+            out = fn(*args)
+            pending = self.download(_as_tuple(out))
+        step.ev1 = pending[1]
+        return out, pending
 
     @staticmethod
     def fetch(pending) -> List[np.ndarray]:
@@ -158,6 +187,14 @@ class _Lane:
         if done is not None:
             done.synchronize()
         return [t.numpy() for t in host]
+
+    @staticmethod
+    def hand_out(step: "profiling.Span", pending) -> List[np.ndarray]:
+        """:meth:`fetch` under ``step``'s ``serving.fetch``; ``step`` ends."""
+        with step.child("serving.fetch"):
+            host = _Lane.fetch(pending)
+        step.close()
+        return host
 
 
 def _as_tuple(out):
@@ -173,24 +210,32 @@ def pipelined_map(fn: Callable, batches: Iterable[np.ndarray], depth: int = 2,
     lane = _Lane(resolve_device(device), depth)
     q: collections.deque = collections.deque()
     it = iter(batches)
+    ids = itertools.count()
 
     def submit() -> bool:
-        try:
-            host = np.asarray(next(it))
-        except StopIteration:
+        step = profiling.open_span("serving.step", next(ids))
+        with step.child("serving.pull"):
+            host = next(it, None)
+        if host is None:
+            step.close()        # the batches have ended
             return False
-        lane.stage(host.shape, host.dtype)[...] = host
-        out = fn(lane.upload())
-        q.append((torch.is_tensor(out), lane.download(_as_tuple(out))))
+        with step.child("serving.stage"):
+            host = np.asarray(host)
+            lane.stage(host.shape, host.dtype)[...] = host
+            x = lane.upload()
+        out, pending = lane.launch(step, fn, x)
+        profiling.count("serving.rows", host.shape[0])
+        q.append((step, torch.is_tensor(out), pending))
         return True
 
     for _ in range(depth):
         if not submit():
             break
     while q:
-        single, pending = q.popleft()
+        step, single, pending = q.popleft()
         submit()
-        host = _Lane.fetch(pending)
+        host = _Lane.hand_out(step, pending)
+        profiling.count("serving.steps")
         yield host[0] if single else tuple(host)
 
 
@@ -247,25 +292,34 @@ class StreamServer:
         self.capacity = len(self.streams)
         self._lane = _Lane(resolve_device(pipeline.device), depth=2)
 
-    def _launch(self):
-        frames, idxs = _pull_step(self.streams)
+    def _launch(self, k: int):
+        step = profiling.open_span("serving.step", k)
+        with step.child("serving.pull"):
+            frames, idxs = _pull_step(self.streams)
         if not frames:
+            step.close()        # every stream has ended
             return None
-        batch = self._lane.stage((self.capacity, *frames[0].shape), frames[0].dtype)
-        for row, f in enumerate(frames):
-            batch[row] = f
-        batch[len(frames):] = 0      # pad to capacity: one shape for the whole run
-        out = self.pipeline.forward_device(self._lane.upload(), self.with_pose)
-        return idxs, self._lane.download(out)
+        with step.child("serving.stage"):
+            batch = self._lane.stage((self.capacity, *frames[0].shape), frames[0].dtype)
+            for row, f in enumerate(frames):
+                batch[row] = f
+            batch[len(frames):] = 0      # pad to capacity: one shape for the whole run
+            x = self._lane.upload()
+        _, pending = self._lane.launch(step, self.pipeline.forward_device, x, self.with_pose)
+        profiling.count("serving.rows", len(frames))
+        profiling.count("serving.padded_rows", self.capacity - len(frames))
+        return step, idxs, pending
 
     def run(self) -> Iterator[Dict[int, dict]]:
         """Yields {stream_index: result dict} per step until every stream
         has ended."""
-        pending = self._launch()
+        pending = self._launch(0)
         while pending is not None:
-            idxs, out = pending
-            pending = self._launch()        # the next batch is in flight
-            yield _rows(_Lane.fetch(out), 0, idxs)
+            step, idxs, out = pending
+            pending = self._launch(step.step + 1)       # the next batch is in flight
+            host = _Lane.hand_out(step, out)
+            profiling.count("serving.steps")
+            yield _rows(host, 0, idxs)
 
 
 class DeviceQueueServer:
@@ -296,14 +350,17 @@ class DeviceQueueServer:
         self.hbm_bytes = hbm_bytes if hbm_bytes is not None else _device_bytes(device)
         self._lane = _Lane(device, depth=2)
 
-    def _launch(self):
+    def _launch(self, k: int):
+        block = profiling.open_span("serving.step", k)
         steps = []
-        for _ in range(self.chunk):
-            frames, idxs = _pull_step(self.streams)
-            if not frames:
-                break
-            steps.append((frames, idxs))
+        with block.child("serving.pull"):
+            for _ in range(self.chunk):
+                frames, idxs = _pull_step(self.streams)
+                if not frames:
+                    break
+                steps.append((frames, idxs))
         if not steps:
+            block.close()       # every stream has ended
             return None
         first = steps[0][0][0]
         n = self.chunk * self.capacity
@@ -314,21 +371,31 @@ class DeviceQueueServer:
                                      f"{self.capacity} streams")
         # short steps and a short last chunk are padded with zero frames:
         # one shape (chunk·capacity) serves the whole run
-        block = self._lane.stage((n, *first.shape), first.dtype)
-        for step, (frames, _) in enumerate(steps):
-            base = step * self.capacity
-            for row, f in enumerate(frames):
-                block[base + row] = f
-            block[base + len(frames):base + self.capacity] = 0
-        block[len(steps) * self.capacity:] = 0
-        out = self.pipeline.forward_device(self._lane.upload(), self.with_pose)
-        return [idxs for _, idxs in steps], self._lane.download(out)
+        with block.child("serving.stage"):
+            staged = self._lane.stage((n, *first.shape), first.dtype)
+            for step, (frames, _) in enumerate(steps):
+                base = step * self.capacity
+                for row, f in enumerate(frames):
+                    staged[base + row] = f
+                staged[base + len(frames):base + self.capacity] = 0
+            staged[len(steps) * self.capacity:] = 0
+            x = self._lane.upload()
+        _, pending = self._lane.launch(block, self.pipeline.forward_device, x,
+                                       self.with_pose)
+        rows = sum(len(frames) for frames, _ in steps)
+        profiling.count("serving.rows", rows)
+        profiling.count("serving.padded_rows", n - rows)
+        return block, [idxs for _, idxs in steps], pending
 
     def run(self) -> Iterator[Dict[int, dict]]:
-        pending = self._launch()
+        """Yields the per-step dicts of :meth:`StreamServer.run`; one
+        ``serving.step`` span covers a block, handed out with its first
+        step."""
+        pending = self._launch(0)
         while pending is not None:
-            step_idxs, out = pending
-            pending = self._launch()        # the next chunk is in flight
-            host = _Lane.fetch(out)
+            block, step_idxs, out = pending
+            pending = self._launch(block.step + 1)      # the next chunk is in flight
+            host = _Lane.hand_out(block, out)
             for step, idxs in enumerate(step_idxs):
+                profiling.count("serving.steps")
                 yield _rows(host, step * self.capacity, idxs)

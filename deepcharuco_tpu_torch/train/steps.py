@@ -21,6 +21,11 @@ model runs as one rank of the mesh on this rank's share of the batch, the
 gradients are averaged over every rank of the mesh after the backward
 pass, and the aux scalars are averaged over ``data``, so that every rank
 holds the global loss and applies the gradient of the global mean loss.
+
+Spans (``profiling``), each under the state's step: ``train.forward`` (the
+model and the loss), ``train.backward`` (the host blocked while autograd's
+thread enqueues the backward pass), ``parallel.grad_all_reduce`` under a
+mesh and ``train.update`` (Adam). Counter: ``train.steps``.
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
+from deepcharuco_tpu_torch import profiling
 from deepcharuco_tpu_torch.models import Detector, RefineNet
 from deepcharuco_tpu_torch.ops.decode import soft_argmax_2d
 
@@ -176,8 +181,9 @@ def refinenet_loss_fn(rn: RefineNet, patches, heatmaps, train: bool = True,
 
 def _update(state: TrainState, loss: torch.Tensor, aux,
             mesh=None) -> Tuple[TrainState, Dict]:
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with profiling.span("train.backward", state.step):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
     aux = {k: v.detach() for k, v in aux.items()}
     if mesh is not None:
         # Each rank's loss is its data shard's mean, and the spatial gather's
@@ -186,15 +192,17 @@ def _update(state: TrainState, loss: torch.Tensor, aux,
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
         flat = torch.cat([g.reshape(-1) for g in grads])
         scalars = torch.stack(list(aux.values()))
-        with record_function("parallel.grad_all_reduce"):
+        with profiling.span("parallel.grad_all_reduce", state.step):
             dist.all_reduce(flat, group=mesh.world)
             dist.all_reduce(scalars, group=mesh.data)
         flat /= mesh.size
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view_as(g))
         aux = dict(zip(aux, (scalars / mesh.shape["data"]).unbind(0)))
-    state.optimizer.step()
+    with profiling.span("train.update", state.step):
+        state.optimizer.step()
     state.step += 1
+    profiling.count("train.steps")
     return state, aux
 
 
@@ -203,10 +211,11 @@ def make_detector_train_step(conf_weight: float = 0.0, conf_margin: float = 4.0,
     """``step(state, images, loc, ids, mesh=None) → (state, aux)``: one Adam
     step."""
     def step(state: TrainState, images, loc_labels, ids_labels, mesh=None):
-        loss, aux, _ = detector_loss_fn(state.model, images, loc_labels, ids_labels,
-                                        conf_weight=conf_weight, conf_margin=conf_margin,
-                                        conf_topk=conf_topk, conf_fg_topk=conf_fg_topk,
-                                        mesh=mesh)
+        with profiling.span("train.forward", state.step):
+            loss, aux, _ = detector_loss_fn(state.model, images, loc_labels, ids_labels,
+                                            conf_weight=conf_weight, conf_margin=conf_margin,
+                                            conf_topk=conf_topk, conf_fg_topk=conf_fg_topk,
+                                            mesh=mesh)
         return _update(state, loss, aux, mesh)
 
     return step
@@ -217,9 +226,10 @@ def make_refinenet_train_step(coord_weight: float = 0.0,
     """``step(state, patches, heatmaps, mesh=None) → (state, aux)``: one Adam
     step."""
     def step(state: TrainState, patches, heatmaps, mesh=None):
-        loss, aux, _ = refinenet_loss_fn(state.model, patches, heatmaps,
-                                         coord_weight=coord_weight,
-                                         offset_weight=offset_weight, mesh=mesh)
+        with profiling.span("train.forward", state.step):
+            loss, aux, _ = refinenet_loss_fn(state.model, patches, heatmaps,
+                                             coord_weight=coord_weight,
+                                             offset_weight=offset_weight, mesh=mesh)
         return _update(state, loss, aux, mesh)
 
     return step

@@ -7,11 +7,13 @@ CUDA toolkit but no JAX (``tests/conftest.py`` imports JAX):
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
 import torch
 
+from deepcharuco_tpu_torch import profiling
 from deepcharuco_tpu_torch.ops import cuda_decode, cuda_fused
 from deepcharuco_tpu_torch.ops.image import normalize_gray
 from deepcharuco_tpu_torch.weights import load_detector, variables_from_npz
@@ -69,11 +71,11 @@ def _twice_equal(fn):
 def test_decode_kernel_matches_plain(card, rng, min_margin, case):
     loc, ids = _decode_inputs(rng, case)
     loc_t, ids_t = torch.from_numpy(loc).to(card), torch.from_numpy(ids).to(card)
-    before = cuda_decode.launches
+    before = profiling.counters().get("kernels.b1_launches", 0)
     kk, vk = cuda_decode.decode(loc_t, ids_t, N_IDS, min_margin)
     kp, vp = cuda_decode.decode_plain(loc_t, ids_t, N_IDS, min_margin)
     torch.cuda.synchronize()
-    assert cuda_decode.launches == before + 1
+    assert profiling.counters().get("kernels.b1_launches", 0) == before + 1
     assert torch.equal(vk, vp) and torch.equal(kk, kp)
     if case == "signed_zero":      # the ±0 tie goes to the lowest cell
         assert kk[:, 3].tolist() == [[8 * (517 % 40) + 5, 8 * (517 // 40)]] * 3
@@ -106,11 +108,11 @@ FUSED_CASES = [((4, 30, 40), None, 16), ((4, 30, 40), 2.0, 16)] + [
 def test_fused_kernel_matches_plain(card, rng, shape, min_margin, least):
     folded = cuda_fused.head_params(variables_from_npz(DET), N_IDS, card)
     trunk = _grid_trunk(card, rng, *shape)
-    before = cuda_fused.launches
+    before = profiling.counters().get("kernels.b2_launches", 0)
     kk, vk = cuda_fused.fused_head_decode(trunk, folded, N_IDS, min_margin)
     kp, vp = cuda_fused.fused_head_decode_plain(trunk, folded, N_IDS, min_margin)
     torch.cuda.synchronize()
-    assert cuda_fused.launches == before + 1
+    assert profiling.counters().get("kernels.b2_launches", 0) == before + 1
     # the kernel and the plain version sum in different orders: near-ties
     # may flip, at most 0.5% of slots
     assert vp.sum() >= least
@@ -274,8 +276,6 @@ def test_geom_decode_on_the_card_matches_the_cpu(card):
 
 
 def test_profiling_on_the_card(card, tmp_path):
-    from deepcharuco_tpu_torch import profiling
-
     stats = profiling.device_memory_stats(card)
     assert stats["bytes_limit"] >= stats["bytes_free"] > 0 and stats["bytes_in_use"] >= 0
     timer = profiling.StageTimer(card)
@@ -351,9 +351,9 @@ def test_detector_metrics_on_the_card_launch_the_decode_kernel(card, rng):
     loc_t = rng.integers(0, 65, size=(8, 30, 40)).astype(np.int32)
     ids_t = rng.integers(0, N_IDS + 1, size=(8, 30, 40)).astype(np.int32)
     args = [torch.from_numpy(a) for a in (loc_hat, ids_hat, loc_t, ids_t)]
-    before = cuda_decode.launches
+    before = profiling.counters().get("kernels.b1_launches", 0)
     got = detector_metrics(*(a.to(card) for a in args), N_IDS)
-    assert cuda_decode.launches == before + 1
+    assert profiling.counters().get("kernels.b1_launches", 0) == before + 1
     want = detector_metrics(*args, N_IDS)
     for k in want:
         assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-6), k
@@ -366,3 +366,52 @@ def test_train_cli_on_the_card(card, tmp_path):
                   "--eval-batches", "1", "--batch-size", "4", "--logdir", str(tmp_path / "tb"),
                   "--ckpt-dir", str(tmp_path / "ck")])
     assert os.path.exists(tmp_path / "ck" / "step_0000002" / "variables.npz")
+
+
+def test_the_anchor_puts_a_device_event_on_the_host_clock(card):
+    """An event recorded on an idle card, read on the host clock through the
+    anchor, lies within 0.1 ms of the host's time once it has run."""
+    profiling.anchor(card)
+    x = torch.ones(1 << 20, device=card)
+    for _ in range(3):
+        (x * 2).sum()
+        torch.cuda.synchronize(card)
+        ev = torch.Event("cuda", enable_timing=True)
+        ev.record()
+        ev.synchronize()
+        t = time.perf_counter_ns()
+        assert abs(t - profiling.host_ns(ev, card)) < 100_000
+
+
+def test_a_steady_pose_call_records_no_capture(card):
+    """The pose graph is captured on a batch size's first call only; each
+    call records a ``pipeline.pose`` span with its events on the stream."""
+    from deepcharuco_tpu_torch.configs import default_config
+    from deepcharuco_tpu_torch.pipeline import Camera, InferencePipeline
+
+    fix = np.load(FRAMES)
+    pipe = InferencePipeline(default_config(), variables_from_npz(DET), variables_from_npz(RN),
+                             camera=Camera(K=fix["K"], dist=fix["dist"]), device=card)
+    before = profiling.counters().get("pipeline.pose_captures", 0)
+    pipe.detect_with_pose(fix["frames"])
+    assert profiling.counters()["pipeline.pose_captures"] == before + 1
+    t0 = time.perf_counter_ns()
+    pipe.detect_with_pose(fix["frames"])
+    assert profiling.counters()["pipeline.pose_captures"] == before + 1
+    pose = [s for s in profiling.spans("pipeline.pose") if s.t0 >= t0]
+    assert len(pose) == 1 and pose[0].device_ms() > 0
+
+
+def test_the_recorder_adds_no_synchronisation_on_the_card(card):
+    x = torch.ones(1 << 20, device=card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step = profiling.open_span("serving.step", 0)
+        with step.child("serving.launch", device=True) as launch:
+            y = x * 2
+        step.close()
+        profiling.count("serving.rows", 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(card)
+    assert launch.device_ms() >= 0 and float(y[0]) == 2.0
