@@ -32,7 +32,13 @@ stopping at the first failure with a non-zero exit:
    one call puts on the card, counted by ``torch.profiler``;
    beside the fused kernel two yardsticks on the same trunk: the unfused
    route (the detector's cuDNN heads, then the decode kernel) and one cuDNN
-   3×3 convolution to 512 channels;
+   3×3 convolution to 512 channels; then the conv epilogue alone at N = 256
+   frames (4,096 patches) on the three largest blocks (the detector's
+   ``conv1b`` with its pool, RefineNet's ``conv5b`` with its upsample and
+   ``convPa``), equal bit for bit to the ATen chain it replaces (bias
+   ``add_``, ``batch_norm``, ``relu``, pool or upsample), with its device
+   time beside its bytes at 3.35 TB/s and beside the chain's time; its
+   launches on the main path are phase 5's;
 7. pose on the fixture: ``detect_with_pose`` (bf16, 24-px hard decode, both
    ``fused_head`` settings) against the JAX package's stored ``full_forward``
    outputs: corners within phase 4's limits, ``ok`` different on at most one
@@ -198,6 +204,7 @@ class SmokeFailure(Exception):
 
 
 B1, B2 = "kernels.b1_launches", "kernels.b2_launches"
+EPI = "kernels.epilogue_launches"
 
 
 def launch_counts():
@@ -212,7 +219,7 @@ def launch_counts():
 def reset_launches():
     from deepcharuco_tpu_torch import profiling
 
-    profiling.reset(B1, B2)
+    profiling.reset(B1, B2, EPI)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -474,6 +481,8 @@ def make_batches(gray, count, rng, n=N):
 def phase_serve(pipes, frames, rng):
     import torch
 
+    from deepcharuco_tpu_torch import profiling
+
     requests = 8
     batches = make_batches(frames, requests * len(pipes), rng)
     for pipe in pipes.values():          # warm-up: cuDNN plans, allocator
@@ -495,7 +504,8 @@ def phase_serve(pipes, frames, rng):
         log(f"phase 5 serve [{name}]: {requests} requests × {N} frames: "
             f"{serve[name]['fps']:.1f} fps, {serve[name]['ms_per_batch']:.3f} ms/batch, "
             f"{serve[name]['valid_per_frame']:.2f} corners/frame")
-    launches = {"decode": launch_counts()[0], "fused_head_decode": launch_counts()[1]}
+    launches = {"decode": launch_counts()[0], "fused_head_decode": launch_counts()[1],
+                "conv_epilogue": profiling.counters().get(EPI, 0)}
     log(f"phase 5 launches on the main path: {launches}")
     require(all(v >= requests for v in launches.values()),
             f"a kernel of the main path was not launched: {launches}")
@@ -588,6 +598,70 @@ def phase_timing(dev, pipes, batch, folded, launches, errs):
                 f"decode kernel) {unfused:.4f} ms, cuDNN 3×3 conv to 512 channels "
                 f"{conv512:.4f} ms (neither computes B2's whole function)")
     return rows, yard
+
+
+def phase_epilogue(pipes, launches):
+    """The conv epilogue alone on the three largest blocks at N = 256:
+    equality with the ATen chain, device ms (CUDA graph) beside the bytes'
+    bound and the chain's ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepcharuco_tpu_torch.ops import conv_epilogue
+
+    det, rn = pipes["heads+decode"].detector, pipes["heads+decode"].refinenet
+    patches = N * N_IDS
+    cases = [("detector.conv1b", det.conv1b, (N, 64, 8 * HC, 8 * WC), "pool"),
+             ("refinenet.conv5b", rn.conv5b, (patches, 64, 32, 32), "up"),
+             ("refinenet.convPa", rn.convPa, (patches, 64, 64, 64), None)]
+    follow = {"pool": lambda y: F.max_pool2d(y, 2, 2),
+              "up": lambda y: F.interpolate(y, scale_factor=2, mode="nearest"),
+              None: lambda y: y}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    with torch.inference_mode():
+        for name, blk, shape, then in cases:
+            bn = blk.bn
+            args = (blk.conv.bias, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                    bn.eps, then)
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+            x = (2 * x).contiguous(memory_format=torch.channels_last)
+
+            def kernel():
+                return conv_epilogue.epilogue(x, *args)
+
+            def chain():
+                y = x.clone()
+                y.add_(blk.conv.bias.view(1, -1, 1, 1))
+                y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                 False, 0.0, bn.eps)
+                return follow[then](F.relu(y))
+
+            got, want = kernel(), chain()
+            same = torch.equal(got, want)
+            del got, want
+            ms, ms2 = graph_ms(kernel, iters=10), graph_ms(kernel, iters=10)
+            host_ms = cuda_ms(kernel)
+            clone_ms = graph_ms(lambda: x.clone(), iters=10)
+            chain_ms = graph_ms(chain, iters=5) - clone_ms
+            out_el = x.numel() // 4 if then == "pool" else 4 * x.numel() if then == "up" \
+                else x.numel()
+            bound_ms = 1e3 * 2 * (x.numel() + out_el) / PEAK_BYTES
+            kms = min(ms, ms2)
+            log(f"phase 6 conv epilogue [{name}, then={then}] {tuple(shape)}: equal to the "
+                f"chain {same}; device {ms:.4f} / {ms2:.4f} ms, back to back from the host "
+                f"{host_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes) = "
+                f"{100 * bound_ms / kms:.1f}% of it; ATen chain {chain_ms:.4f} ms "
+                f"({chain_ms / kms:.2f}×)")
+            require(same, f"conv epilogue [{name}] differs from the ATen chain")
+            rows.append({"block": name, "then": then, "shape": list(shape), "ms": kms,
+                         "host_ms": host_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                         "chain_ms": chain_ms})
+            del x
+            torch.cuda.empty_cache()
+    return {"name": "conv_epilogue", "route": "cuda",
+            "source": "deepcharuco_tpu_torch/csrc/conv_epilogue.cu", "replaces": None,
+            "launches": launches["conv_epilogue"], "blocks": rows}
 
 
 def stored(fix, tag, keys=POSE_KEYS):
@@ -2719,6 +2793,7 @@ def main() -> int:
     serve, launches, batch = phase_serve(pipes, fix["frames"], rng)
     rows, yard = phase_timing(dev, pipes, batch, folded, launches,
                               {"decode": dec_err, "fused_head_decode": fused_err})
+    epilogue = phase_epilogue(pipes, launches)
     phase_pose_fixture(pipes, fix, dev)
     hi_pipe = phase_variants(cfg, dv, rv, fix, dev)
     pose, pose_launches = phase_pose_serve(pipes, hi_pipe, fix, rng, dev, serve)
@@ -2751,7 +2826,7 @@ def main() -> int:
                     "streams": streams, "train": train, "entry_points": entry,
                     "host": host, "calib_view": calib_view, "parallel": parallel}))
     log(smi())
-    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"kernels": rows + [epilogue]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

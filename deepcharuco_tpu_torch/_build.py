@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-KERNELS = ("decode", "fused_head_decode")
+KERNELS = ("decode", "fused_head_decode", "conv_epilogue")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}
@@ -96,10 +96,12 @@ def build(names: Iterable[str] = KERNELS) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed
+    (together with every other kernel of ``KERNELS`` not built yet, so that
+    a first run waits for one round of nvcc processes, not one per kernel)."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
+        build(KERNELS if name in KERNELS else [name])
         lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
 

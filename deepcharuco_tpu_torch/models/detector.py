@@ -32,6 +32,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from deepcharuco_tpu_torch.ops import conv_epilogue
 from deepcharuco_tpu_torch.parallel.collectives import all_gather, all_reduce, halo_rows
 
 
@@ -56,20 +57,28 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvBNRelu(nn.Module):
-    """3×3 conv → BatchNorm → ReLU.
+    """3×3 conv → BatchNorm → ReLU, then ``then``: ``"pool"`` (2×2 max-pool,
+    floor), ``"up"`` (×2 nearest upsample) or ``None``.
 
     ``padding=1`` is SAME, ``padding=0`` VALID. The conv runs in ``dtype``;
     BatchNorm keeps float32 parameters and normalizes in float32 before the
     result is rounded back to ``dtype``, as Flax does for a bf16 module.
 
-    ``train=False`` normalizes with the running statistics. ``train=True``
-    normalizes with the batch's mean and *biased* variance, computed as
-    Flax does (``E[x²] − E[x]²`` in float32, clipped at 0), and updates the
-    running statistics as Flax's ``BatchNorm(momentum=0.9)`` does:
-    ``running = 0.9·running + 0.1·batch`` with the biased variance. Torch's
-    own update (``F.batch_norm(training=True)``) would store the unbiased
-    variance, n/(n−1) larger, so the update is written out here. The
-    statistics are float32 (float64 for a float64 module).
+    ``train=False`` normalizes with the running statistics. A bf16 block on
+    a CUDA tensor with autograd off runs cuDNN's convolution without its
+    bias and then one pass of ``ops.conv_epilogue`` (bias, BatchNorm, ReLU
+    and ``then``), rounding where the ATen chain does; every other
+    inference (the CPU, float32 and float64 modules, autograd on) runs the
+    ATen chain: convolution with bias, ``F.batch_norm``, ``F.relu``, then
+    :func:`pool` or :func:`up`.
+
+    ``train=True`` normalizes with the batch's mean and *biased* variance,
+    computed as Flax does (``E[x²] − E[x]²`` in float32, clipped at 0), and
+    updates the running statistics as Flax's ``BatchNorm(momentum=0.9)``
+    does: ``running = 0.9·running + 0.1·batch`` with the biased variance.
+    Torch's own update (``F.batch_norm(training=True)``) would store the
+    unbiased variance, n/(n−1) larger, so the update is written out here.
+    The statistics are float32 (float64 for a float64 module).
 
     ``stats`` (a process group) reduces the batch statistics over its ranks,
     differentiably; every rank of it holds as many pixels, so the global
@@ -86,17 +95,28 @@ class ConvBNRelu(nn.Module):
         self.conv = nn.Conv2d(cin, cout, 3, padding=padding, dtype=dtype)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
-    def forward(self, x, train: bool = False, stats=None, halo=None):
+    def _conv(self, x, halo, bias: bool = True):
         if halo is None:
-            x = self.conv(x)
-        else:
-            x = halo_rows(x, halo).contiguous(memory_format=torch.channels_last)
-            x = F.conv2d(x, self.conv.weight, self.conv.bias, padding=(0, 1))
+            if bias:
+                return self.conv(x)
+            return F.conv2d(x, self.conv.weight, None, padding=self.conv.padding)
+        x = halo_rows(x, halo).contiguous(memory_format=torch.channels_last)
+        return F.conv2d(x, self.conv.weight, self.conv.bias if bias else None, padding=(0, 1))
+
+    def forward(self, x, train: bool = False, stats=None, halo=None, then=None):
+        if train:
+            return FOLLOW[then](self._train(self._conv(x, halo), stats))
         bn = self.bn
-        if not train:
-            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                             False, 0.0, bn.eps)
-            return F.relu(x)
+        if x.is_cuda and x.dtype == torch.bfloat16 and not torch.is_grad_enabled():
+            return conv_epilogue.epilogue(self._conv(x, halo, bias=False), self.conv.bias,
+                                          bn.running_mean, bn.running_var, bn.weight,
+                                          bn.bias, bn.eps, then)
+        x = F.batch_norm(self._conv(x, halo), bn.running_mean,
+                         bn.running_var, bn.weight, bn.bias, False, 0.0, bn.eps)
+        return FOLLOW[then](F.relu(x))
+
+    def _train(self, x, stats):
+        bn = self.bn
         xf = as_f32(x)
         mean = xf.mean(dim=(0, 2, 3))
         sq = (xf * xf).mean(dim=(0, 2, 3))
@@ -115,6 +135,13 @@ class ConvBNRelu(nn.Module):
 
 def pool(x):
     return F.max_pool2d(x, 2, 2)
+
+
+def up(x):
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+FOLLOW = {None: lambda x: x, "pool": pool, "up": up}
 
 
 def as_f32(x: torch.Tensor) -> torch.Tensor:
@@ -150,11 +177,11 @@ class Detector(nn.Module):
             x = x[:, mesh.coords[1] * h:(mesh.coords[1] + 1) * h]
         stats = None if mesh is None else mesh.world if split else mesh.data
         halo = mesh if split else None
-        blk = lambda m, x: m(x, train, stats, halo)
+        blk = lambda m, x, then=None: m(x, train, stats, halo, then)
         x = to_nchw(x.to(self.dtype))
-        x = pool(blk(self.conv1b, blk(self.conv1a, x)))
-        x = pool(blk(self.conv2b, blk(self.conv2a, x)))
-        x = pool(blk(self.conv3b, blk(self.conv3a, x)))
+        x = blk(self.conv1b, blk(self.conv1a, x), "pool")
+        x = blk(self.conv2b, blk(self.conv2a, x), "pool")
+        x = blk(self.conv3b, blk(self.conv3a, x), "pool")
         x = blk(self.conv4b, blk(self.conv4a, x))
         if split:
             x = all_gather(x, 2, mesh.spatial).contiguous(memory_format=torch.channels_last)

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepcharuco_tpu_torch._device import resolve_device
+from deepcharuco_tpu_torch.models.detector import pool, to_nchw
 
 # Encoder blocks in graph order; (name, pool_after).
 _ENCODER = [
@@ -98,18 +99,18 @@ def quantize_weight(kernel: np.ndarray):
 def calibrate_activations(detector, frames) -> Dict[str, float]:
     """Per-block output absmax over a calibration batch: ``frames`` are
     normalized float32 NHWC on the detector's device; returns {block: absmax}
-    for every ConvBNRelu block (after its ReLU, so absmax = max). Read
-    through forward hooks, which are removed again."""
-    names = [n for n, _ in _ENCODER] + ["convPa", "convDa"]
+    for every ConvBNRelu block (after its ReLU, so absmax = max, and before
+    the pool that follows conv1b/conv2b/conv3b). Walks the trunk block by
+    block, as the detector does."""
     out: Dict[str, float] = {}
-    hooks = [getattr(detector, name).register_forward_hook(
-        lambda mod, args, y, name=name: out.__setitem__(name, float(y.float().abs().max())))
-        for name in names]
-    try:
-        detector(frames)
-    finally:
-        for h in hooks:
-            h.remove()
+    x = to_nchw(frames.to(detector.dtype))
+    for name, pool_after in _ENCODER:
+        x = getattr(detector, name)(x)
+        out[name] = float(x.float().abs().max())
+        if pool_after:
+            x = pool(x)
+    for _, block, _ in _HEADS:
+        out[block] = float(getattr(detector, block)(x).float().abs().max())
     return out
 
 

@@ -25,8 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepcharuco_tpu_torch.models.detector import (ConvBNRelu, as_f32, pool, to_nchw,
-                                                   to_nhwc)
+from deepcharuco_tpu_torch.models.detector import ConvBNRelu, as_f32, to_nchw, to_nhwc, up
 
 
 class RefineNet(nn.Module):
@@ -65,24 +64,32 @@ class RefineNet(nn.Module):
         if self.upsample == "bilinear":
             return F.interpolate(x, scale_factor=2, mode="bilinear",
                                  align_corners=False)
-        return F.interpolate(x, scale_factor=2, mode="nearest")
+        return up(x)
 
     def forward(self, x, train: bool = False, mesh=None):
         stats = None if mesh is None else mesh.data
-        blk = lambda m, x: m(x, train, stats)
+        blk = lambda m, x, then=None: m(x, train, stats, then=then)
+        if self.upsample == "bilinear":
+            blk_up = lambda m, x: self._up(blk(m, x))
+        else:                                        # the block runs the upsample
+            blk_up = lambda m, x: blk(m, x, "up")
         x = to_nchw(x.to(self.dtype))
-        x = blk(self.conv2b, blk(self.conv2a, blk(self.conv1b, blk(self.conv1a, x))))
-        x = pool(x)                                  # 16 → 8, or 24 → 12
+        x = blk(self.conv2a, blk(self.conv1b, blk(self.conv1a, x)))
+        x = blk(self.conv2b, x, "pool")              # 16 → 8, or 24 → 12
         if self.patch_size == 32:
             x = blk(self.conv2d, blk(self.conv2c, x))        # 12 → 10 → 8
-        bottleneck = blk(self.conv3b, blk(self.conv3a, x))  # (N, c3, 8, 8)
-        x = self._up(bottleneck)
-        x = self._up(blk(self.conv4b, blk(self.conv4a, x)))
-        x = self._up(blk(self.conv5b, blk(self.conv5a, x)))
+        x = blk(self.conv3a, x)
+        if self.offset_head:                         # the bottleneck feeds both heads
+            bottleneck = blk(self.conv3b, x)         # (N, c3, 8, 8)
+            x = self._up(bottleneck)
+        else:
+            x = blk_up(self.conv3b, x)
+        x = blk_up(self.conv4b, blk(self.conv4a, x))
+        x = blk_up(self.conv5b, blk(self.conv5a, x))
         heat = to_nhwc(as_f32(self.convPb(blk(self.convPa, x))))
         if not self.offset_head:
             return heat
-        o = pool(blk(self.convOa, bottleneck))       # (N, 128, 4, 4)
+        o = blk(self.convOa, bottleneck, "pool")     # (N, 128, 4, 4)
         # denseOa's 2048 inputs are ordered (row, col, channel), as the
         # JAX module flattens its NHWC map
         o = to_nhwc(o).flatten(1)

@@ -59,8 +59,8 @@ def plant(fault: str) -> None:
         steps._update = update
     elif fault == "local-bn":
         forward = ConvBNRelu.forward
-        ConvBNRelu.forward = (lambda self, x, train=False, stats=None, halo=None:
-                              forward(self, x, train, None, halo))
+        ConvBNRelu.forward = (lambda self, x, train=False, stats=None, halo=None, then=None:
+                              forward(self, x, train, None, halo, then))
 
 
 def rank_main(fault: str, argv) -> int:
