@@ -1,18 +1,12 @@
 """The readings that a cell's limits are set from, in one process on the
 card: sound runs of the program on many seeds (short windows), the
-control on a few (the reference in the program's place, one precision
-below the configuration's), and planted faults. Prints one JSON line per
-run and a summary: the largest sound reading and the smallest control
-reading of each number.
+control on a few (the program module's ``control``: the reference in the
+program's place, one precision below the configuration's), and planted
+faults. Prints one JSON line per run and a summary: the largest sound
+reading and the smallest control reading of each number.
 
     python -m portbench.calibrate --workload base_offline_pose --seeds 12 \
         --control-seeds 3 --seconds 2 [--faults wrong_rows,half_batch]
-
-The control of an inference cell runs the reference's networks with their
-convolutions' inputs and kernels rounded to float8 e4m3 (per-tensor scale)
-and solves the pose in bfloat16, in batches of the cell's size; that of the
-training cell runs the reference's steps with convolutions rounded to
-bfloat16 (the configuration trains in float32 with TF32 convolutions).
 """
 
 from __future__ import annotations
@@ -22,56 +16,12 @@ import json
 import sys
 import time
 
-import numpy as np
 import torch
 
-from portbench import frames, harness, program
-from portbench.common import full_float32, sample_rows
-from portbench.reference import nets
+from portbench import harness
 from portbench.reference import train as ref_train
-from portbench.reference.pipeline import Reference
 
 BASE_SEED = 3_000_000_000
-
-
-def control_inference(c: dict, seed: int, device) -> dict:
-    """The readings of the control on the frames a run of ``seed`` judges."""
-    cfg, p = c["config"], c["params"]
-    if c["driver"] == "offline":
-        pool = frames.batch_pool(seed, cfg["input_hw"], p["batch"], p["pool_batches"], p)
-        n_batches = max(1, -(-p["check_frames"] // p["batch"]))
-        picks = sample_rows(seed, n_batches, p["batch"], p["check_frames"])
-        sample = np.stack([pool[b % len(pool)][r] for b, r in picks])
-        block = p["batch"]
-    else:
-        pool = frames.frame_pool(seed, cfg["input_hw"], p["pool_frames"], p)
-        s = p["streams"]
-        stride = len(pool) // s
-        picks = sample_rows(seed, max(1, -(-p["check_frames"] // s)) * 4, s, p["check_frames"])
-        sample = np.stack([pool[(cc * stride + k) % len(pool)] for k, cc in picks])
-        block = s
-    ref = Reference(cfg, harness.ROOT, device)
-    with full_float32():
-        out = ref.run(sample, q=nets.fp8, pose_dtype=torch.bfloat16, block=block)
-        return ref.judge(sample, out)
-
-
-def control_train(c: dict, seed: int, device) -> dict:
-    cfg, p = c["config"], c["params"]
-    t = cfg["train"]
-    start = program.initial_detector(cfg, seed, device)
-    host = frames.training_batches(seed, cfg["input_hw"], cfg["n_ids"], p["batch"],
-                                   p["pool_batches"], p)
-    checked = [tuple(torch.from_numpy(a).to(device) for a in host[i])
-               for i in range(p["checked_steps"])]
-    names = [k for k in start if not k.endswith(("running_mean", "running_var",
-                                                 "num_batches_tracked"))]
-    start = {k: start[k] for k in names}
-    with full_float32():
-        ref = ref_train.steps(start, checked, t["lr"], t["betas"], t["eps"])
-        ctl = ref_train.steps(start, checked, t["lr"], t["betas"], t["eps"], q=nets.bf16)
-    record = {"start": start, "losses": ctl[0], "grad": ctl[1], "end": ctl[2]}
-    return ref_train.judge(record, {"losses": ref[0], "grad": ref[1], "end": ref[2]})
 
 
 def emit(rows: list, row: dict) -> None:
@@ -102,7 +52,7 @@ def main(argv=None) -> int:
                     "readings": readings,
                     "metrics": {k: v["value"] for k, v in r["metrics"].items()},
                     "s": time.time() - t0})
-        if c["driver"] == "train_step" and i < 2:
+        if hasattr(run, "record") and i < 2:
             ref = run.reference()
             gaps = ref_train.leaf_gaps(run.record["grad"], ref["grad"], list(ref["grad"]))
             print(json.dumps({"worst_grad_leaves": sorted(gaps.items(), key=lambda kv: -kv[1])[:4],
@@ -110,8 +60,8 @@ def main(argv=None) -> int:
                               "reference_losses": ref["losses"]}), flush=True)
     for i in range(args.control_seeds):
         seed = args.first_seed + 7919 * i
-        fn = control_train if c["driver"] == "train_step" else control_inference
-        emit(rows, {"kind": "control", "seed": seed, "readings": fn(c, seed, device)})
+        emit(rows, {"kind": "control", "seed": seed,
+                    "readings": c["program"].control(c, seed, device)})
     for fault in filter(None, args.faults.split(",")):
         for i in range(args.fault_seeds):
             seed = args.first_seed + 7919 * i

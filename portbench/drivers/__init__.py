@@ -1,6 +1,12 @@
 """Traffic generators, one per kind of mix (``offline``, ``stream``,
-``train_step``). A mix file names its driver and gives its parameters; a
-driver's ``Run`` does the set-up, the window and the comparison of one run.
+``train_step``, ``train_devsynth``). A mix file names its driver and gives
+its parameters; a driver's ``Run`` does the set-up, the window and the
+comparison of one run, calling the cell's program module (``run.prog``,
+``programs/__init__.py``) for all that belongs to the model. A driver
+module also declares ``TASK`` ("serve" or "train": which of the program
+module's functions it calls), ``SMALL`` (the parameters of its CPU tests'
+runs) and ``control_inputs(c, seed, device)`` (the inputs a run of
+``seed`` judges, for the program module's ``control``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ class RunBase:
                  device: torch.device, fault: Optional[str]):
         self.cell = cell
         self.cfg = cell["config"]
+        self.prog = cell["program"]
         self.p = cell["params"]
         self.seed = seed
         self.seconds = seconds
@@ -70,7 +77,7 @@ class RunBase:
 
     def release(self) -> None:
         """Free the program's device state before the reference runs."""
-        for name in ("pipe", "state", "step", "pool_dev"):
+        for name in ("pipe", "state", "step", "pool_dev", "dispatch", "synth"):
             if hasattr(self, name):
                 setattr(self, name, None)
         if self.device.type == "cuda":

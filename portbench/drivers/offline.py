@@ -14,11 +14,25 @@ import time
 
 import numpy as np
 
-from portbench import faults, frames, program
+from portbench import frames
 from portbench.common import full_float32, sample_rows
 from portbench.drivers import RunBase
 from portbench.harness import ROOT
-from portbench.reference.pipeline import Reference
+
+TASK = "serve"
+SMALL = dict(batch=2, pool_batches=2, warm_batches=1, check_frames=4,
+             trace_skip=1, trace_steps=1, trace_drop=0)
+
+
+def control_inputs(c: dict, seed: int, device) -> dict:
+    """The frames a run of ``seed`` judges (its first batches' sample) and
+    the cell's batch size."""
+    cfg, p = c["config"], c["params"]
+    pool = frames.batch_pool(seed, cfg["input_hw"], p["batch"], p["pool_batches"], p)
+    n_batches = max(1, -(-p["check_frames"] // p["batch"]))
+    picks = sample_rows(seed, n_batches, p["batch"], p["check_frames"])
+    return {"frames": np.stack([pool[b % len(pool)][r] for b, r in picks]),
+            "block": p["batch"]}
 
 
 class Run(RunBase):
@@ -26,8 +40,8 @@ class Run(RunBase):
         from deepcharuco_tpu_torch.serving import pipelined_map
 
         self.pipelined_map = pipelined_map
-        self.pipe = program.pipeline(self.cfg, ROOT, self.device)
-        faults.plant(self)
+        self.pipe = self.prog.build(self.cfg, ROOT, self.seed, self.device)
+        self.prog.plant(self)
         p = self.p
         self.pool = frames.batch_pool(self.seed, self.cfg["input_hw"], p["batch"],
                                       p["pool_batches"], p)
@@ -36,10 +50,7 @@ class Run(RunBase):
             pass
         self.sync()
         if self.trace:
-            self.spans.hook(self.pipe.detector, "detector")
-            self.spans.hook(self.pipe.refinenet, "refinenet")
-            self.spans.wrap(self.pipe, "forward_device", "forward_device")
-            self.spans.wrap(self.pipe, "solve_pose", "solve_pose")
+            self.prog.instrument(self.spans, self.pipe, layers=True)
 
     def _fn(self, x):
         return self.pipe.forward_device(x, with_pose=self.p["with_pose"])
@@ -71,6 +82,6 @@ class Run(RunBase):
         picks = sample_rows(self.seed, len(self.results), p["batch"], p["check_frames"])
         frames_u8 = np.stack([self.pool[self.sent[b]][r] for b, r in picks])
         out = {k: np.stack([self.results[b][i][r] for b, r in picks])
-               for i, k in enumerate(faults.KEYS)}
+               for i, k in enumerate(self.prog.OUTPUTS)}
         with full_float32():
-            return Reference(self.cfg, ROOT, self.device).judge(frames_u8, out)
+            return self.prog.judge(self.cfg, ROOT, self.seed, self.device, frames_u8, out)

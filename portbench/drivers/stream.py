@@ -18,11 +18,26 @@ from contextlib import nullcontext
 
 import numpy as np
 
-from portbench import faults, frames, program
+from portbench import frames
 from portbench.common import full_float32, sample_rows
 from portbench.drivers import RunBase
 from portbench.harness import ROOT
-from portbench.reference.pipeline import Reference
+
+TASK = "serve"
+SMALL = dict(streams=2, pool_frames=8, warm_steps=1, tail_steps=1, fps=10.0,
+             trace_skip=1, trace_steps=1, trace_drop=0, check_frames=4)
+
+
+def control_inputs(c: dict, seed: int, device) -> dict:
+    """The frames a run of ``seed`` judges (a sample of its first steps'
+    frames) and the cell's step size, its number of cameras."""
+    cfg, p = c["config"], c["params"]
+    pool = frames.frame_pool(seed, cfg["input_hw"], p["pool_frames"], p)
+    s = p["streams"]
+    stride = len(pool) // s
+    picks = sample_rows(seed, max(1, -(-p["check_frames"] // s)) * 4, s, p["check_frames"])
+    return {"frames": np.stack([pool[(cc * stride + k) % len(pool)] for k, cc in picks]),
+            "block": s}
 
 
 class Run(RunBase):
@@ -30,8 +45,8 @@ class Run(RunBase):
         from deepcharuco_tpu_torch.serving import StreamServer, VideoStream
 
         self.Server, self.Stream = StreamServer, VideoStream
-        self.pipe = program.pipeline(self.cfg, ROOT, self.device)
-        faults.plant(self)
+        self.pipe = self.prog.build(self.cfg, ROOT, self.seed, self.device)
+        self.prog.plant(self)
         p = self.p
         self.S = p["streams"]
         self.pool = frames.frame_pool(self.seed, self.cfg["input_hw"], p["pool_frames"], p)
@@ -44,8 +59,7 @@ class Run(RunBase):
             pass
         self.sync()
         if self.trace:
-            self.spans.wrap(self.pipe, "forward_device", "forward_device")
-            self.spans.wrap(self.pipe, "solve_pose", "solve_pose")
+            self.prog.instrument(self.spans, self.pipe, layers=False)
 
     def frame(self, c: int, k: int) -> np.ndarray:
         return self.pool[(c * self.stride + k) % len(self.pool)]
@@ -105,6 +119,7 @@ class Run(RunBase):
     def judge(self):
         picks = sorted(self.kept)
         frames_u8 = np.stack([self.frame(c, k) for k, c in picks])
-        out = {key: np.stack([self.kept[k, c][key] for k, c in picks]) for key in faults.KEYS}
+        out = {key: np.stack([self.kept[k, c][key] for k, c in picks])
+               for key in self.prog.OUTPUTS}
         with full_float32():
-            return Reference(self.cfg, ROOT, self.device).judge(frames_u8, out)
+            return self.prog.judge(self.cfg, ROOT, self.seed, self.device, frames_u8, out)

@@ -4,11 +4,13 @@ Everything that belongs to one configuration, mix, cell or per-layer
 metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
 
 - ``configs/<config>.json``: the configuration (widths, weights, precision,
-  resolution, decode and RefineNet options, camera);
+  resolution, decode and refiner options, camera) and the program module
+  that knows its model family (``programs/<program>.py``);
 - ``mixes/<traffic>.json``: the traffic mix, the driver that generates it
   (``drivers/<driver>.py``) and its parameters;
-- ``workloads/<cell>.json``: the cell's own parameters over the mix's and
-  the limits of the readings that decide ``correct``;
+- ``workloads/<cell>.json``: the cell's own parameters over the mix's, the
+  limits of the readings that decide ``correct`` and the faults that must
+  fail it;
 - ``metrics/<metric>.py``: a per-layer reader, ``read(run) -> float | None``.
 """
 
@@ -39,8 +41,8 @@ def benchmark() -> dict:
 
 def cell(name: str, spec: Optional[dict] = None) -> dict:
     """The cell ``name`` as one dict: its ``BENCHMARK.json`` entry, its
-    configuration, its mix, the merged parameters, its limits and the
-    metrics it reports."""
+    configuration and program module, its mix's driver, the merged
+    parameters, its limits and faults, and the metrics it reports."""
     spec = spec or benchmark()
     entry = next((w for w in spec["workloads"] if w["name"] == name), None)
     if entry is None:
@@ -53,9 +55,16 @@ def cell(name: str, spec: Optional[dict] = None) -> dict:
     reported = {m["name"] for m in e2e}
     layer = [m for m in spec["per_layer"]
              if (name in m["workloads"] if "workloads" in m else m["moves"] in reported)]
-    return {"name": name, "entry": entry, "config": load_json(ROOT / conf["file"]),
+    config = load_json(ROOT / conf["file"])
+    return {"name": name, "entry": entry, "config": config,
+            "program": importlib.import_module(f"portbench.programs.{config['program']}"),
             "driver": mix["driver"], "params": params, "limits": own["limits"],
-            "end_to_end": e2e, "per_layer": layer}
+            "faults": own.get("faults", []), "end_to_end": e2e, "per_layer": layer}
+
+
+def driver(c: dict):
+    """The module of cell ``c``'s driver (``drivers/<driver>.py``)."""
+    return importlib.import_module(f"portbench.drivers.{c['driver']}")
 
 
 class Clock:
@@ -116,8 +125,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device=None,
              spec: Optional[dict] = None) -> dict:
     """One run of cell ``name``: set-up, the window, the comparison. Returns
     the result line's object. ``device`` None is the card; ``fault`` plants
-    one of ``faults.FAULTS`` in the timed path; ``overrides`` replace mix
-    parameters (the tests' small sizes)."""
+    one of the program module's ``FAULTS`` in the timed path; ``overrides``
+    replace mix parameters (the tests' small sizes)."""
     return run_once(name, seed, seconds, trace, device, fault, overrides, spec)[0]
 
 
@@ -130,8 +139,7 @@ def run_once(name, seed, seconds, trace, device=None, fault=None, overrides=None
     c["params"].update(overrides or {})
     if device is None:
         device = torch.device("cuda", 0)
-    driver = importlib.import_module(f"portbench.drivers.{c['driver']}")
-    run = driver.Run(c, seed, seconds, trace, device, fault)
+    run = driver(c).Run(c, seed, seconds, trace, device, fault)
     run.setup()
     if run.stretch is not None:
         run.stretch.warm()

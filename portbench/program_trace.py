@@ -1,9 +1,8 @@
 """The port's own spans and counters (``deepcharuco_tpu_torch.profiling``)
 as the per-layer readers see them.
 
-The second module of the benchmark that imports the port, after
-``program.py``: these spans and counters are recorded inside the program,
-so a reader reaches them only through the program's recorder. Readers take
+These spans and counters are recorded inside the program, so a reader
+reaches them only through the program's recorder. Readers take
 the spans that began after the window opened (``run.t_start``) and ended
 before the profiler started (``run.stretch.t_on``), so that no profiler
 runs under them. Where the program records no such span (a checkout from

@@ -2,35 +2,21 @@
 every cell on the CPU at a small size (the port's plain path,
 ``device="cpu"``): sound runs pass the cells' own limits; each fault the
 cell can have, planted in the timed path, and the control (the reference in
-the program's place, one precision below) fail them."""
+the program's place, one precision below) fail them. The small sizes are
+each driver's ``SMALL``, the faults each cell's own list."""
 
 import pytest
 import torch
 
-from portbench import calibrate, harness
+from portbench import harness
 
 CPU = torch.device("cpu")
-SMALL = {
-    "offline": dict(batch=2, pool_batches=2, warm_batches=1, check_frames=4,
-                    trace_skip=1, trace_steps=1, trace_drop=0),
-    "stream": dict(streams=2, pool_frames=8, warm_steps=1, tail_steps=1, fps=10.0,
-                   trace_skip=1, trace_steps=1, trace_drop=0, check_frames=4),
-    "train_step": dict(batch=2, pool_batches=3, warm_steps=1, trace_skip=1,
-                       trace_steps=1, trace_drop=0),
-}
 SEED = 2**31 + 977
-FAULTS = {
-    "base_offline_pose": ["wrong_rows", "altered_answer", "half_batch", "pose_wrong_corners",
-                          "pose_one_row"],
-    "hires_offline_pose": ["wrong_rows", "half_batch", "pose_wrong_corners"],
-    "base_stream_pose": ["wrong_rows", "pose_wrong_corners", "pose_one_row"],
-    "base_train_step": ["unchanged", "half_batch_train"],
-}
 CELLS = [w["name"] for w in harness.benchmark()["workloads"]]
 
 
 def small(name):
-    return SMALL[harness.cell(name)["driver"]]
+    return harness.driver(harness.cell(name)).SMALL
 
 
 def run(name, trace=False, fault=None):
@@ -50,7 +36,8 @@ def test_sound_run_is_correct_and_reports_its_metrics(name):
     assert set(r["checks"]) == set(c["limits"])
 
 
-@pytest.mark.parametrize("name,fault", [(n, f) for n, fs in FAULTS.items() for f in fs])
+@pytest.mark.parametrize("name,fault",
+                         [(n, f) for n in CELLS for f in harness.cell(n)["faults"]])
 def test_planted_fault_is_not_correct(name, fault):
     assert not run(name, fault=fault)["correct"]
 
@@ -59,15 +46,20 @@ def test_planted_fault_is_not_correct(name, fault):
 def test_control_fails_a_limit(name):
     c = harness.cell(name)
     c["params"].update(small(name))
-    fn = calibrate.control_train if c["driver"] == "train_step" else calibrate.control_inference
-    readings = fn(c, SEED, CPU)
+    readings = c["program"].control(c, SEED, CPU)
     assert any(readings[k] > limit for k, limit in c["limits"].items()), readings
 
 
-def test_traced_run_reads_its_host_metrics():
-    r = run("base_train_step", trace=True)
-    assert r["correct"] and "enqueue_ms.train" in r["metrics"]
-    assert "mfu.train" not in r["metrics"]         # a device metric is never read on the CPU
+@pytest.mark.parametrize("name", [n for n in CELLS if harness.driver(harness.cell(n)).TASK
+                                  == "train"])
+def test_traced_run_reads_its_host_metrics(name):
+    """Every host-clock reader of a training cell reads a traced CPU run; a
+    device metric is never read on the CPU."""
+    r = run(name, trace=True)
+    assert r["correct"]
+    for m in harness.cell(name)["per_layer"]:
+        if m["source"] in ("host_clock", "device_trace"):
+            assert (m["name"] in r["metrics"]) == (m["source"] == "host_clock"), m["name"]
 
 
 def test_pose_is_judged_on_every_frame_its_corners_determine():

@@ -1,5 +1,6 @@
-"""The analytic counts against ``torch.utils.flop_counter`` over the plain
-reference's networks, on the CPU."""
+"""The DeepCharuco program module's analytic counts against
+``torch.utils.flop_counter`` over the plain reference's networks, on the
+CPU."""
 
 import json
 
@@ -7,7 +8,8 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench import counts, harness
+from portbench import harness
+from portbench.programs import deepcharuco as dc
 from portbench.reference import nets
 
 CONFIGS = ["deepc_240x320", "deepc_hires_480x640"]
@@ -33,16 +35,14 @@ def test_detector_and_refinenet_flops(name):
     with torch.no_grad():
         det = counted(lambda: nets.detector(W, torch.zeros(1, 1, h, w)))
         rn = counted(lambda: nets.refinenet(R, torch.zeros(2, 1, p, p), p)) / 2
-    assert det == counts.detector_flops(cfg)
-    assert rn == counts.refinenet_flops(cfg)
-    assert det + cfg["n_ids"] * rn == counts.frame_flops(cfg)
+    assert det == dc.detector_flops(cfg)
+    assert rn == dc.refinenet_flops(cfg)
+    assert det + cfg["n_ids"] * rn == dc.frame_flops(cfg) == dc.flops_per_item(cfg, "serve")
 
 
 def test_train_step_flops():
     cfg = config("deepc_240x320")
-    from portbench import program
-
-    start = program.initial_detector(cfg, 0, torch.device("cpu"))
+    start = dc.initial_state(cfg, 0, torch.device("cpu"))
     P = {k: v.requires_grad_(True) for k, v in start.items()
          if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
 
@@ -50,12 +50,12 @@ def test_train_step_flops():
         loc, ids = nets.detector_train(P, torch.zeros(1, 1, *cfg["input_hw"]))
         (loc.sum() + ids.sum()).backward()
 
-    assert counted(step) == counts.train_sample_flops(cfg)
+    assert counted(step) == dc.train_sample_flops(cfg) == dc.flops_per_item(cfg, "train")
 
 
 def test_decode_bound():
     cfg = config("deepc_240x320")
-    b = counts.decode_bytes(cfg, 256)
+    b = dc.decode_bytes(cfg, 256)
     assert b["read"] == 256 * 30 * 40 * (65 + 17) * 4
     assert b["written"] == 256 * 16 * 9
-    assert counts.decode_min_seconds(cfg, 256) == pytest.approx(b["total"] / 3.35e12)
+    assert dc.decode_min_seconds(cfg, 256) == pytest.approx(b["total"] / 3.35e12)

@@ -13,12 +13,13 @@ CPU = torch.device("cpu")
 HOST = {"base_offline_pose": ["stage_ms.offline", "fetch_wait_ms.offline"],
         "hires_offline_pose": ["stage_ms.offline", "fetch_wait_ms.offline"],
         "base_stream_pose": ["pull_ms.stream"],
-        "base_train_step": ["backward_enqueue_ms.train", "update_enqueue_ms.train"]}
+        "base_train_step": ["backward_enqueue_ms.train", "update_enqueue_ms.train"],
+        "base_train_devsynth": ["backward_enqueue_ms.train", "update_enqueue_ms.train"]}
 DEVICE = {"base_offline_pose": ["pose_ms.offline"],
           "hires_offline_pose": ["pose_ms.offline"],
           "base_stream_pose": ["held_ms.stream", "step_idle_pct.stream",
                                "idle_in_pull_pct.stream"],
-          "base_train_step": []}
+          "base_train_step": [], "base_train_devsynth": []}
 
 
 def traced(name):

@@ -1,6 +1,7 @@
 """``BENCHMARK.json`` against the benchmark's contract, and every file it
 names."""
 
+import hashlib
 import json
 import re
 
@@ -45,6 +46,11 @@ def test_names_units_and_lines():
 def test_every_cell_has_its_files_and_metrics(w):
     c = harness.cell(w["name"], SPEC)
     assert (harness.BENCH / "drivers" / f"{c['driver']}.py").is_file()
+    assert (harness.BENCH / "programs" / f"{c['config']['program']}.py").is_file()
+    driver = harness.driver(c)
+    assert driver.TASK in ("serve", "train") and callable(driver.control_inputs)
+    assert set(driver.SMALL) <= set(c["params"])
+    assert c["faults"] and set(c["faults"]) <= set(c["program"].FAULTS)
     assert w["chips"] == 1
     assert "setup_s" in {m["name"] for m in c["end_to_end"]} and len(c["end_to_end"]) >= 2
     assert c["per_layer"]
@@ -67,9 +73,32 @@ def test_end_to_end_bounds_and_sources():
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
 
 
+def weight_files(node):
+    """Every (weights, sha256) pair named anywhere in a configuration."""
+    if isinstance(node, dict):
+        if "weights" in node:
+            yield node["weights"], node.get("sha256")
+        for v in node.values():
+            yield from weight_files(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from weight_files(v)
+
+
 @pytest.mark.parametrize("c", SPEC["configs"], ids=lambda c: c["name"])
 def test_configs_parse_and_name_their_reductions(c):
+    """A configuration names its program module, its reductions and, under
+    ``assumed``, where its weights come from; every weight file it names
+    exists and matches the SHA-256 beside it, and one whose weights are
+    drawn from the seed names none."""
     cfg = harness.load_json(harness.ROOT / c["file"])
     assert c["file"].startswith("portbench/") and c["source"].startswith("https://")
     assert c["reduced"] == cfg["reduced"]
-    assert (harness.ROOT / cfg["detector"]["weights"]).is_file()
+    assert (harness.BENCH / "programs" / f"{cfg['program']}.py").is_file()
+    said = [a for a in cfg["assumed"] if a.startswith("weights:")]
+    assert len(said) == 1
+    files = list(weight_files(cfg))
+    for path, digest in files:
+        data = (harness.ROOT / path).read_bytes()
+        assert hashlib.sha256(data).hexdigest() == digest, path
+    assert files or "seed" in said[0]
