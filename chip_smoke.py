@@ -38,7 +38,12 @@ stopping at the first failure with a non-zero exit:
    ``convPa``), equal bit for bit to the ATen chain it replaces (bias
    ``add_``, ``batch_norm``, ``relu``, pool or upsample), with its device
    time beside its bytes at 3.35 TB/s and beside the chain's time; its
-   launches on the main path are phase 5's;
+   launches on the main path are phase 5's; and its entry without
+   BatchNorm (``bias_relu``, SuperPoint's blocks) at 128 frames of 480×640
+   with C 64, 128 and 256, with and without the pool, equal bit for bit to
+   ``bias_relu_plain`` on the card, timed beside its bytes' bound and the
+   plain version, with its launches (one a block) read from
+   ``MatchPipeline.forward_device`` served by ``pipelined_map``;
 7. pose on the fixture: ``detect_with_pose`` (bf16, 24-px hard decode, both
    ``fused_head`` settings) against the JAX package's stored ``full_forward``
    outputs: corners within phase 4's limits, ``ok`` different on at most one
@@ -662,6 +667,88 @@ def phase_epilogue(pipes, launches):
     return {"name": "conv_epilogue", "route": "cuda",
             "source": "deepcharuco_tpu_torch/csrc/conv_epilogue.cu", "replaces": None,
             "launches": launches["conv_epilogue"], "blocks": rows}
+
+
+SPLG_CONFIG = os.path.join(ROOT, "portbench", "configs", "splg_480x640.json")
+SP_FRAMES = 128
+SP_CASES = [("superpoint.conv1a", (SP_FRAMES, 64, 480, 640), None),
+            ("superpoint.conv1b", (SP_FRAMES, 64, 480, 640), "pool"),
+            ("superpoint.conv3a", (SP_FRAMES, 128, 120, 160), None),
+            ("superpoint.conv3b", (SP_FRAMES, 128, 120, 160), "pool"),
+            ("superpoint.convPa", (SP_FRAMES, 256, 60, 80), None),
+            ("C 256 with a pool", (SP_FRAMES, 256, 60, 80), "pool")]
+
+
+def phase_epilogue_no_norm(dev):
+    """The epilogue's entry without BatchNorm (``conv_epilogue.bias_relu``)
+    alone at SuperPoint's shapes, 128 frames of 480×640: equal bit for bit
+    to ``bias_relu_plain`` on the card, device ms (CUDA graph) beside the
+    bytes' bound and the plain version's ms; then its launches in the main
+    path's own run, ``MatchPipeline.forward_device`` under
+    ``serving.pipelined_map`` at ``splg_480x640``, one a block."""
+    import torch
+
+    from deepcharuco_tpu_torch import profiling
+    from deepcharuco_tpu_torch.matching import MatchPipeline
+    from deepcharuco_tpu_torch.ops import conv_epilogue
+    from deepcharuco_tpu_torch.serving import pipelined_map
+    from reference import superpoint_lightglue as splg
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    with torch.inference_mode():
+        for name, shape, then in SP_CASES:
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+            x = (2 * x).contiguous(memory_format=torch.channels_last)
+            bias = (0.5 * torch.randn(shape[1], generator=gen, device="cuda")).to(torch.bfloat16)
+
+            def kernel():
+                return conv_epilogue.bias_relu(x, bias, then)
+
+            got, want = kernel(), conv_epilogue.bias_relu_plain(x, bias, then)
+            same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+            del got, want
+            ms, ms2 = graph_ms(kernel, iters=3), graph_ms(kernel, iters=3)
+            plain_ms = cuda_ms(lambda: conv_epilogue.bias_relu_plain(x, bias, then), iters=3,
+                               warmup=1)
+            out_el = x.numel() // 4 if then == "pool" else x.numel()
+            bound_ms = 1e3 * 2 * (x.numel() + out_el) / PEAK_BYTES
+            kms = min(ms, ms2)
+            log(f"phase 6 conv epilogue, no norm [{name}, then={then}] {tuple(shape)}: bit-equal "
+                f"to bias_relu_plain {same}; device {ms:.4f} / {ms2:.4f} ms; bound "
+                f"{bound_ms:.4f} ms (bytes) = {100 * bound_ms / kms:.1f}% of it; plain "
+                f"{plain_ms:.4f} ms ({plain_ms / kms:.2f}×)")
+            require(same, f"conv epilogue without BatchNorm [{name}] differs from its plain "
+                          "version")
+            rows.append({"block": name, "then": then, "shape": list(shape), "ms": kms,
+                         "bound_ms": bound_ms, "bound_by": "bytes", "plain_ms": plain_ms})
+            del x
+            torch.cuda.empty_cache()
+    with open(SPLG_CONFIG) as f:
+        conf = json.load(f)
+    sp, lg = splg.draw_weights(conf, 1)
+    pipe = MatchPipeline(sp, lg, max_num_keypoints=conf["max_num_keypoints"],
+                         nms_radius=conf["nms_radius"],
+                         detection_threshold=conf["detection_threshold"],
+                         remove_borders=conf["remove_borders"],
+                         descriptor_dim=conf["descriptor_dim"], n_layers=conf["n_layers"],
+                         num_heads=conf["num_heads"], filter_threshold=conf["filter_threshold"],
+                         device=dev)
+    rng = np.random.default_rng(1)
+    batches = [rng.integers(0, 256, (SP_FRAMES, *conf["input_hw"]), dtype=np.uint8)
+               for _ in range(3)]
+    profiling.reset(EPI)
+    served = sum(1 for _ in pipelined_map(pipe.forward_device, batches, 2, dev))
+    launches = profiling.counters().get(EPI, 0)
+    log(f"phase 6 conv epilogue, no norm: {launches} launches in {served} batches of "
+        f"MatchPipeline.forward_device under pipelined_map")
+    require(launches == 10 * served, "SuperPoint's ten blocks do not each launch the "
+                                     "epilogue once a batch")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"name": "conv_epilogue (no norm)", "route": "cuda",
+            "source": "deepcharuco_tpu_torch/csrc/conv_epilogue.cu", "replaces": None,
+            "launches_match_path": launches, "blocks": rows}
 
 
 def stored(fix, tag, keys=POSE_KEYS):
@@ -2794,6 +2881,7 @@ def main() -> int:
     rows, yard = phase_timing(dev, pipes, batch, folded, launches,
                               {"decode": dec_err, "fused_head_decode": fused_err})
     epilogue = phase_epilogue(pipes, launches)
+    epilogue_no_norm = phase_epilogue_no_norm(dev)
     phase_pose_fixture(pipes, fix, dev)
     hi_pipe = phase_variants(cfg, dv, rv, fix, dev)
     pose, pose_launches = phase_pose_serve(pipes, hi_pipe, fix, rng, dev, serve)
@@ -2826,7 +2914,7 @@ def main() -> int:
                     "streams": streams, "train": train, "entry_points": entry,
                     "host": host, "calib_view": calib_view, "parallel": parallel}))
     log(smi())
-    log(json.dumps({"kernels": rows + [epilogue]}))
+    log(json.dumps({"kernels": rows + [epilogue, epilogue_no_norm]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -13,11 +13,14 @@ Layout
   the cv2 helpers (cv2 imported inside each; own copy)
 - :mod:`deepcharuco_tpu_torch.weights`  — shipped ``.npz`` weights ⇄ state dicts
 - :mod:`deepcharuco_tpu_torch.compat`   — Lightning ``.ckpt`` ⇄ the weight tree
-- :mod:`deepcharuco_tpu_torch.models`   — Detector, RefineNet (``nn.Module``)
+- :mod:`deepcharuco_tpu_torch.models`   — Detector, RefineNet, SuperPoint, LightGlue
+  (``nn.Module``)
 - :mod:`deepcharuco_tpu_torch.ops`      — image, decode and patch ops; the
   CUDA kernels' wrappers (``cuda_decode``, ``cuda_fused``)
 - :mod:`deepcharuco_tpu_torch.pnp`      — batched planar PnP (camera model,
   small linear algebra, DLT + Levenberg–Marquardt, RANSAC)
+- :mod:`deepcharuco_tpu_torch.matching` — ``MatchPipeline``: SuperPoint + LightGlue
+  pair matching (``ops.keypoints`` selects and samples the keypoints)
 - :mod:`deepcharuco_tpu_torch.pipeline` — ``two_stage_forward[_hires]``,
   ``full_forward[_hires]``, ``Camera``, ``InferencePipeline``, ``load_pipeline``,
   ``load_model_variables``

@@ -1,6 +1,8 @@
 // Conv epilogue: the conv bias, BatchNorm on the running statistics, ReLU
 // and the 2×2 max-pool or ×2 nearest upsample that follows, in one pass
-// over a bf16 channels_last convolution output.
+// over a bf16 channels_last convolution output. A second entry point does
+// the same without BatchNorm (a block with no norm, as SuperPoint's): the
+// bias, ReLU, then the pool or upsample.
 //
 // Replaces no TPU kernel. XLA fuses a ConvBNRelu block's elementwise tail
 // into the convolution on the TPU; PyTorch runs cuDNN's convolution and
@@ -20,9 +22,10 @@
 //   inv = rsqrtf(var + eps)                     ATen's batch_norm_calc_invstd
 //   y = isnan(u) ? u : fmaxf(u, 0)              relu (clamp_min)
 // then the max of the four (NaN propagates, as max_pool2d's does) or four
-// copies. Each step's intrinsic is spelled out so that no contraction other
-// than ATen's can happen. BatchNorm is not folded into the weights: that
-// moves a rounding.
+// copies. Without BatchNorm, y = isnan(t) ? t : fmaxf(t, 0), as conv2d
+// with its bias, relu and the pool or upsample give. Each step's intrinsic
+// is spelled out so that no contraction other than ATen's can happen.
+// BatchNorm is not folded into the weights: that moves a rounding.
 //
 // Design: a thread owns one 16-byte vector of 8 channels at a time. The
 // block is a multiple of C/8 threads and the grid's stride a multiple of
@@ -58,20 +61,23 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+template <bool kNorm>
 __device__ __forceinline__ float epilogue1(float c, const Channels& p, int k) {
   const float t = bf16_round(__fadd_rn(c, p.cb[k]));
+  if (!kNorm) return isnan(t) ? t : fmaxf(t, 0.f);
   const float u = bf16_round(__fmaf_rn(__fmul_rn(p.w[k], __fsub_rn(t, p.m[k])), p.inv[k], p.s[k]));
   return isnan(u) ? u : fmaxf(u, 0.f);
 }
 
 // The 8 channels of one pixel through the epilogue, as floats.
+template <bool kNorm>
 __device__ __forceinline__ void apply(const uint4& v, const Channels& p, float f[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = epilogue1(t.x, p, 2 * i);
-    f[2 * i + 1] = epilogue1(t.y, p, 2 * i + 1);
+    f[2 * i] = epilogue1<kNorm>(t.x, p, 2 * i);
+    f[2 * i + 1] = epilogue1<kNorm>(t.y, p, 2 * i + 1);
   }
 }
 
@@ -93,20 +99,23 @@ __device__ __forceinline__ void max_into(float acc[8], const float f[8]) {
 
 // x: (n, h, w, c) bf16, the conv output without its bias; y: (n, h/2, w/2, c)
 // (kPool, floor), (n, 2h, 2w, c) (kUp) or (n, h, w, c). `items` counts the
-// 16-byte vectors of y (kNone, kPool) or of x (kUp).
-template <int kThen>
+// 16-byte vectors of y (kNone, kPool) or of x (kUp). Without kNorm the four
+// BatchNorm pointers are not read.
+template <int kThen, bool kNorm>
 __global__ void __launch_bounds__(kMaxThreads)
 conv_epilogue_kernel(const uint4* __restrict__ x, const __nv_bfloat16* __restrict__ conv_bias,
                      const float* __restrict__ mean, const float* __restrict__ var,
                      const float* __restrict__ weight, const float* __restrict__ shift,
                      float eps, int c, int h, int w, unsigned items, uint4* __restrict__ y) {
-  extern __shared__ float smem[];  // kParams arrays of c floats
+  extern __shared__ float smem[];  // kParams arrays of c floats (kNorm), else one
   for (int i = threadIdx.x; i < c; i += blockDim.x) {
     smem[i] = __bfloat162float(conv_bias[i]);
-    smem[c + i] = mean[i];
-    smem[2 * c + i] = rsqrtf(__fadd_rn(var[i], eps));
-    smem[3 * c + i] = weight[i];
-    smem[4 * c + i] = shift[i];
+    if (kNorm) {
+      smem[c + i] = mean[i];
+      smem[2 * c + i] = rsqrtf(__fadd_rn(var[i], eps));
+      smem[3 * c + i] = weight[i];
+      smem[4 * c + i] = shift[i];
+    }
   }
   __syncthreads();
   const unsigned groups = static_cast<unsigned>(c) / 8u;
@@ -116,10 +125,12 @@ conv_epilogue_kernel(const uint4* __restrict__ x, const __nv_bfloat16* __restric
   for (int k = 0; k < 8; ++k) {
     const int ch = 8 * g + k;
     p.cb[k] = smem[ch];
-    p.m[k] = smem[c + ch];
-    p.inv[k] = smem[2 * c + ch];
-    p.w[k] = smem[3 * c + ch];
-    p.s[k] = smem[4 * c + ch];
+    if (kNorm) {
+      p.m[k] = smem[c + ch];
+      p.inv[k] = smem[2 * c + ch];
+      p.w[k] = smem[3 * c + ch];
+      p.s[k] = smem[4 * c + ch];
+    }
   }
 
   constexpr int kU = kThen == kPool ? 2 : 4;  // a pooled vector reads four
@@ -160,14 +171,14 @@ conv_epilogue_kernel(const uint4* __restrict__ x, const __nv_bfloat16* __restric
       const unsigned i = i0 + u * stride;
       if (i >= items) break;
       float f[8];
-      apply(in[u][0], p, f);
+      apply<kNorm>(in[u][0], p, f);
       if (kThen == kNone) {
         y[i] = pack(f);
       } else if (kThen == kPool) {
 #pragma unroll
         for (int l = 1; l < kLoads; ++l) {
           float e[8];
-          apply(in[u][l], p, e);
+          apply<kNorm>(in[u][l], p, e);
           max_into(f, e);
         }
         y[i] = pack(f);
@@ -183,11 +194,11 @@ conv_epilogue_kernel(const uint4* __restrict__ x, const __nv_bfloat16* __restric
   }
 }
 
-// Blocks of the kernel in mode kThen that fit on the current device at once,
-// with kMaxThreads threads and the largest shared memory a call asks for:
-// worked out once per device and mode, since the host cost of a call matters
-// for small layers.
-template <int kThen>
+// Blocks of the kernel in mode (kThen, kNorm) that fit on the current device
+// at once, with kMaxThreads threads and the largest shared memory a call asks
+// for: worked out once per device and mode, since the host cost of a call
+// matters for small layers.
+template <int kThen, bool kNorm>
 cudaError_t resident_blocks(int& blocks) {
   static std::mutex mu;
   static int cache[kMaxDevices] = {};
@@ -198,11 +209,11 @@ cudaError_t resident_blocks(int& blocks) {
   std::lock_guard<std::mutex> lock(mu);
   if (cache[dev] == 0) {
     int sms = 0, per_sm = 0;
-    const int smem = kParams * kMaxChannels * static_cast<int>(sizeof(float));
+    const int smem = (kNorm ? kParams : 1) * kMaxChannels * static_cast<int>(sizeof(float));
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_epilogue_kernel<kThen>,
-                                                          kMaxThreads, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, conv_epilogue_kernel<kThen, kNorm>, kMaxThreads, smem);
     if (err != cudaSuccess) return err;
     cache[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
@@ -210,7 +221,7 @@ cudaError_t resident_blocks(int& blocks) {
   return cudaSuccess;
 }
 
-template <int kThen>
+template <int kThen, bool kNorm>
 int launch(const void* x, const void* conv_bias, const void* mean, const void* var,
            const void* weight, const void* shift, float eps, int n, int c, int h, int w,
            void* y, cudaStream_t stream) {
@@ -220,13 +231,13 @@ int launch(const void* x, const void* conv_bias, const void* mean, const void* v
   const long long items = pixels * groups;
   if (items <= 0) return static_cast<int>(cudaGetLastError());
   int resident = 0;
-  const cudaError_t err = resident_blocks<kThen>(resident);
+  const cudaError_t err = resident_blocks<kThen, kNorm>(resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = static_cast<int>(groups * (kMaxThreads / groups));
   const long long want = (items + threads - 1) / threads;
   const int grid = static_cast<int>(want < resident ? want : resident);
-  const int smem = kParams * c * static_cast<int>(sizeof(float));
-  conv_epilogue_kernel<kThen><<<grid, threads, smem, stream>>>(
+  const int smem = (kNorm ? kParams : 1) * c * static_cast<int>(sizeof(float));
+  conv_epilogue_kernel<kThen, kNorm><<<grid, threads, smem, stream>>>(
       static_cast<const uint4*>(x), static_cast<const __nv_bfloat16*>(conv_bias),
       static_cast<const float*>(mean), static_cast<const float*>(var),
       static_cast<const float*>(weight), static_cast<const float*>(shift), eps, c, h, w,
@@ -249,10 +260,26 @@ extern "C" int dc_conv_epilogue(const void* x, const void* conv_bias, const void
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (then == kPool)
-    return launch<kPool>(x, conv_bias, mean, var, weight, shift, eps, n, c, h, w, y, s);
+    return launch<kPool, true>(x, conv_bias, mean, var, weight, shift, eps, n, c, h, w, y, s);
   if (then == kUp)
-    return launch<kUp>(x, conv_bias, mean, var, weight, shift, eps, n, c, h, w, y, s);
-  return launch<kNone>(x, conv_bias, mean, var, weight, shift, eps, n, c, h, w, y, s);
+    return launch<kUp, true>(x, conv_bias, mean, var, weight, shift, eps, n, c, h, w, y, s);
+  return launch<kNone, true>(x, conv_bias, mean, var, weight, shift, eps, n, c, h, w, y, s);
+}
+
+// The same pass without BatchNorm: the conv bias, ReLU, then `then`.
+extern "C" int dc_conv_bias_relu(const void* x, const void* conv_bias, int n, int c, int h,
+                                 int w, int then, void* y, void* stream) {
+  if (c <= 0 || c % 8 != 0 || c > kMaxChannels || then < kNone || then > kUp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (then == kPool)
+    return launch<kPool, false>(x, conv_bias, nullptr, nullptr, nullptr, nullptr, 0.f, n, c,
+                                h, w, y, s);
+  if (then == kUp)
+    return launch<kUp, false>(x, conv_bias, nullptr, nullptr, nullptr, nullptr, 0.f, n, c, h,
+                              w, y, s);
+  return launch<kNone, false>(x, conv_bias, nullptr, nullptr, nullptr, nullptr, 0.f, n, c, h,
+                              w, y, s);
 }
 
 extern "C" const char* dc_error_string(int status) {

@@ -58,7 +58,11 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class ConvBNRelu(nn.Module):
     """3×3 conv → BatchNorm → ReLU, then ``then``: ``"pool"`` (2×2 max-pool,
-    floor), ``"up"`` (×2 nearest upsample) or ``None``.
+    floor), ``"up"`` (×2 nearest upsample) or ``None``. ``norm=False`` is
+    the block without BatchNorm (SuperPoint's: conv with its bias → ReLU),
+    on the card through the epilogue's no-norm pass
+    (``conv_epilogue.bias_relu``), elsewhere the ATen chain; it has no
+    ``bn`` and trains as conv → ReLU.
 
     ``padding=1`` is SAME, ``padding=0`` VALID. The conv runs in ``dtype``;
     BatchNorm keeps float32 parameters and normalizes in float32 before the
@@ -90,10 +94,10 @@ class ConvBNRelu(nn.Module):
     MOMENTUM = 0.9
 
     def __init__(self, cin: int, cout: int, padding: int = 1,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, norm: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 3, padding=padding, dtype=dtype)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1) if norm else None
 
     def _conv(self, x, halo, bias: bool = True):
         if halo is None:
@@ -104,10 +108,16 @@ class ConvBNRelu(nn.Module):
         return F.conv2d(x, self.conv.weight, self.conv.bias if bias else None, padding=(0, 1))
 
     def forward(self, x, train: bool = False, stats=None, halo=None, then=None):
+        bn = self.bn
+        epilogue = x.is_cuda and x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+        if bn is None:
+            if epilogue and not train:
+                return conv_epilogue.bias_relu(self._conv(x, halo, bias=False), self.conv.bias,
+                                               then)
+            return FOLLOW[then](F.relu(self._conv(x, halo)))
         if train:
             return FOLLOW[then](self._train(self._conv(x, halo), stats))
-        bn = self.bn
-        if x.is_cuda and x.dtype == torch.bfloat16 and not torch.is_grad_enabled():
+        if epilogue:
             return conv_epilogue.epilogue(self._conv(x, halo, bias=False), self.conv.bias,
                                           bn.running_mean, bn.running_var, bn.weight,
                                           bn.bias, bn.eps, then)
@@ -153,14 +163,18 @@ def as_f32(x: torch.Tensor) -> torch.Tensor:
 class Detector(nn.Module):
     """(N, H, W, 1) normalized gray → ``{"loc": (N, H/8, W/8, 65),
     "ids": (N, H/8, W/8, n_ids+1)}`` float32 NHWC, or ``{"trunk":
-    (N, H/8, W/8, 128)}`` in ``dtype`` under ``trunk_only=True``."""
+    (N, H/8, W/8, 128)}`` in ``dtype`` under ``trunk_only=True``.
 
-    def __init__(self, n_ids: int = 16, dtype: torch.dtype = torch.bfloat16):
+    ``norm=False`` is for ``models.SuperPoint``, the same trunk and heads
+    without BatchNorm."""
+
+    def __init__(self, n_ids: int = 16, dtype: torch.dtype = torch.bfloat16,
+                 norm: bool = True):
         super().__init__()
         self.n_ids = n_ids
         self.dtype = dtype
         c1, c2, c3, c4, c5 = 64, 64, 128, 128, 256
-        blk = lambda cin, cout: ConvBNRelu(cin, cout, 1, dtype)
+        blk = lambda cin, cout: ConvBNRelu(cin, cout, 1, dtype, norm)
         self.conv1a, self.conv1b = blk(1, c1), blk(c1, c1)
         self.conv2a, self.conv2b = blk(c1, c2), blk(c2, c2)
         self.conv3a, self.conv3b = blk(c2, c3), blk(c3, c3)
@@ -170,6 +184,14 @@ class Detector(nn.Module):
         self.convDa = blk(c4, c5)
         self.convDb = nn.Conv2d(c5, n_ids + 1, 1, dtype=dtype)
 
+    def trunk(self, x, blk):
+        """The four conv pairs with a 2×2 pool after each of the first three;
+        ``blk(module, x, then)`` runs one block."""
+        x = blk(self.conv1b, blk(self.conv1a, x), "pool")
+        x = blk(self.conv2b, blk(self.conv2a, x), "pool")
+        x = blk(self.conv3b, blk(self.conv3a, x), "pool")
+        return blk(self.conv4b, blk(self.conv4a, x))
+
     def forward(self, x, train: bool = False, trunk_only: bool = False, mesh=None):
         split = splits_rows(mesh, x.shape[1])
         if split:
@@ -178,11 +200,7 @@ class Detector(nn.Module):
         stats = None if mesh is None else mesh.world if split else mesh.data
         halo = mesh if split else None
         blk = lambda m, x, then=None: m(x, train, stats, halo, then)
-        x = to_nchw(x.to(self.dtype))
-        x = blk(self.conv1b, blk(self.conv1a, x), "pool")
-        x = blk(self.conv2b, blk(self.conv2a, x), "pool")
-        x = blk(self.conv3b, blk(self.conv3a, x), "pool")
-        x = blk(self.conv4b, blk(self.conv4a, x))
+        x = self.trunk(to_nchw(x.to(self.dtype)), blk)
         if split:
             x = all_gather(x, 2, mesh.spatial).contiguous(memory_format=torch.channels_last)
         if trunk_only:

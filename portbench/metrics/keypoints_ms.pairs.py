@@ -1,0 +1,10 @@
+"""Device milliseconds per batch of the keypoint stage (the program's
+``match.keypoints`` span: scores, NMS, selection, descriptor sampling):
+the kernels the profiler puts inside that span's ranges over the profiled
+stretch, divided by the ranges there. None where the program has no such
+span."""
+
+
+def read(run):
+    got = run.stretch.device_ms_of("match.keypoints")
+    return got[0] / got[1] if got else None

@@ -51,6 +51,14 @@ def chain_follow(x, then):
     return x
 
 
+def chain_bias_relu(c, conv_bias, then):
+    """What the chain does to a conv output ``c`` without its bias in a
+    block with no norm (SuperPoint's)."""
+    c = c.clone()
+    c.add_(conv_bias.view(1, -1, 1, 1))
+    return chain_follow(F.relu(c), then)
+
+
 def chain_epilogue(c, conv_bias, bn, then):
     """What the chain does to a conv output ``c`` without its bias."""
     c = c.clone()
@@ -278,6 +286,17 @@ CARD_CASES = [(c, then, shape) for c in (64, 128, 256) for then in THENS
               for shape in CARD_SHAPES if not (then == "pool" and shape == "pixel")]
 
 
+def card_conv_output(c, shape, card):
+    """:func:`conv_output` on the card with NaN, ±inf, −0 and a value near
+    bf16's largest planted in it."""
+    n, h, w = CARD_SHAPES[shape]
+    x = conv_output(np.random.default_rng(c * 7 + h), n, c, h, w, torch.bfloat16)
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 3e38],
+                            dtype=torch.bfloat16)
+    x.permute(0, 2, 3, 1).view(-1)[torch.arange(specials.numel()) * 7] = specials
+    return x.to(card)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,then,shape", CARD_CASES,
                          ids=[f"{c}-{t or 'none'}-{s}" for c, t, s in CARD_CASES])
@@ -286,13 +305,9 @@ def test_kernel_equals_the_chain_on_the_card(card, c, then, shape):
     bf16's largest: the kernel's output equals the chain's bit for bit (up
     to the sign of a zero, which ``torch.equal`` ignores), and a second
     launch gives the same bits."""
-    n, h, w = CARD_SHAPES[shape]
-    x = conv_output(np.random.default_rng(c * 7 + h), n, c, h, w, torch.bfloat16)
-    specials = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 3e38],
-                            dtype=torch.bfloat16)
-    x.permute(0, 2, 3, 1).view(-1)[torch.arange(specials.numel()) * 7] = specials
+    x = card_conv_output(c, shape, card)
     bias, bn = block_params(c, torch.bfloat16, c)
-    x, bias, bn = x.to(card), bias.to(card), bn.to(card)
+    bias, bn = bias.to(card), bn.to(card)
     before = launches()
     got = conv_epilogue.epilogue(x, bias, bn.running_mean, bn.running_var, bn.weight,
                                  bn.bias, bn.eps, then)
@@ -307,6 +322,57 @@ def test_kernel_equals_the_chain_on_the_card(card, c, then, shape):
     assert torch.equal(torch.isnan(got), nan)
     assert torch.equal(got[~nan], want[~nan])
     assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,then,shape", CARD_CASES,
+                         ids=[f"{c}-{t or 'none'}-{s}" for c, t, s in CARD_CASES])
+def test_no_norm_kernel_equals_the_chain_on_the_card(card, c, then, shape):
+    """The entry without BatchNorm (``bias_relu``): the kernel's output
+    equals the chain's and ``bias_relu_plain``'s on the card bit for bit,
+    and a second launch gives the same bits."""
+    x = card_conv_output(c, shape, card)
+    bias = block_params(c, torch.bfloat16, c)[0].to(card)
+    before = launches()
+    got = conv_epilogue.bias_relu(x, bias, then)
+    again = conv_epilogue.bias_relu(x, bias, then)
+    want = chain_bias_relu(x, bias, then)
+    plain = conv_epilogue.bias_relu_plain(x, bias, then)
+    torch.cuda.synchronize()
+    assert launches() == before + 2
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and torch.equal(torch.isnan(plain), nan)
+    assert torch.equal(got[~nan], want[~nan]) and torch.equal(got[~nan], plain[~nan])
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_every_block_of_superpoint_equals_the_chain_on_the_card(card):
+    """SuperPoint's ten blocks on two 480×640 frames: each block's kernel
+    output equals conv2d with its bias, ReLU and the pool, and one forward
+    counts one launch a block."""
+    from deepcharuco_tpu_torch.models import SuperPoint
+
+    torch.manual_seed(3)
+    sp = SuperPoint(256).to(card).eval()
+    x = torch.rand(2, 480, 640, device=card)
+
+    def both(m, x, then=None):
+        got = m(x, then=then)
+        want = chain_follow(F.relu(F.conv2d(x, m.conv.weight, m.conv.bias, padding=1)), then)
+        assert equal(got, want), (tuple(x.shape), then)
+        return got
+
+    with torch.inference_mode():
+        trunk = sp.trunk(to_nchw(x.to(torch.bfloat16)[..., None]), both)
+        both(sp.convPa, trunk)
+        both(sp.convDa, trunk)
+        before = launches()
+        sp(x)
+        torch.cuda.synchronize()
+        assert launches() - before == 10
 
 
 @pytest.mark.cuda
@@ -382,3 +448,24 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(card):
         conv_epilogue.epilogue(cl, bias, bn.running_mean.cpu(), *args[1:])
     with pytest.raises(ValueError, match="BatchNorm tensors"):
         conv_epilogue.epilogue(cl, bias, bn.running_mean.double(), *args[1:])
+
+
+@pytest.mark.cuda
+def test_the_no_norm_wrapper_refuses_what_the_kernel_does_not_take(card):
+    c = 64
+    bias = block_params(c, torch.bfloat16, 0)[0].to(card)
+    x = torch.rand(2, c, 6, 6, device=card, dtype=torch.bfloat16)      # NCHW contiguous
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_epilogue.bias_relu(x, bias)
+    cl = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="bf16 channels_last"):
+        conv_epilogue.bias_relu(cl.float(), bias)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv_epilogue.bias_relu(cl[:, :60].contiguous(memory_format=torch.channels_last),
+                                bias[:60])
+    with pytest.raises(ValueError, match="conv bias"):
+        conv_epilogue.bias_relu(cl, bias.cpu())
+    with pytest.raises(ValueError, match="conv bias"):
+        conv_epilogue.bias_relu(cl, bias.float())
+    with pytest.raises(ValueError, match="then must be"):
+        conv_epilogue.bias_relu(cl, bias, "bilinear")
