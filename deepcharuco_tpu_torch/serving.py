@@ -7,15 +7,30 @@ N independent video streams go through one
 - **batch aggregation**: one frame of every live stream forms one device
   batch, padded to a fixed capacity (one set of cuDNN plans and one pose
   graph per server, not one per batch size);
-- **transfers that overlap compute**: batch k+1 is gathered, uploaded and
-  launched while batch k still runs, and the host waits only for the batch
-  it is about to hand out.
+- **transfers that overlap compute**: a batch is gathered, uploaded and
+  launched while the one before it may still run, and the host waits only
+  for the batch it is about to hand out;
+- **a pull thread**: the servers' sources block until a frame is due, so
+  each server pulls its frames on a thread of its own, one step ahead of
+  the launches, and hands a step out as soon as its results reach the
+  host, never after the next step's frames.
 
-:class:`StreamServer` is the latency-first pull loop, one batch per step;
+:class:`StreamServer` is the latency-first server, one batch per step;
 :class:`DeviceQueueServer` gathers ``chunk`` steps of every stream into one
 block and one launch (throughput first, ``chunk`` frame intervals of added
-latency); :func:`pipelined_map` pipelines a function over batches that are
-already formed.
+latency); both run :func:`_serve`. :func:`pipelined_map` pipelines a
+function over batches that are already formed, on the caller's thread.
+
+The serving loop (:func:`_serve`) waits on one queue that two threads of
+the server feed (:class:`_Feeds`): the pull thread puts each step's frames,
+and a ready thread, which waits on each launched step's download event,
+says when the oldest step's results are on the host. The loop acts on
+whichever comes first: it launches step k+1 while step k is in flight if
+step k+1's frames come first (two batches in flight: an overloaded server
+or frames that are all ready), and otherwise hands step k out. Nothing is
+launched while two batches are in flight. The loop neither polls nor
+sleeps: a timed wait can oversleep by a millisecond, and a loop that spins
+keeps the interpreter lock from the pull thread.
 
 How the overlap is made on the card (:class:`_Lane`). A pageable numpy
 batch does not upload asynchronously, so frames are gathered straight into
@@ -27,26 +42,29 @@ recorded after them. That order matters: the pose tail's outputs are the
 buffers of one CUDA graph (``InferencePipeline.solve_pose``), which the
 next batch's replay overwrites, so they are copied out before it in stream
 order. Handing a batch out waits on its event and on nothing else. On the
-CPU the same code runs without streams.
+CPU the same code runs without streams, and a launched batch is ready.
 
 Spans (``profiling``), one set per step or batch, under its id:
 ``serving.step`` from the first pull to the hand-out, its device end the
 download's event (the results ready on the host); under it
-``serving.pull`` (frames from the sources: the wait for the cameras),
-``serving.stage`` (the gather into pinned staging, its wait for the buffer
-included, and the upload's enqueue), ``serving.launch`` (the pipeline's
-enqueue and the downloads'; on the card its start event is the step's first
-work on the compute stream) and ``serving.fetch`` (the host blocked on the
-results). A server launches step k+1 before it fetches step k, so step
-k+1's pull, stage and launch fall inside step k's ``serving.step``.
-Counters: ``serving.steps`` handed out, ``serving.rows`` of frames and
-``serving.padded_rows`` of padding.
+``serving.pull`` (frames from the sources, on the pull thread: the wait
+for the cameras, which starts once the step before has been launched),
+``serving.stage`` (the gather into pinned staging, its wait for
+the buffer included, and the upload's enqueue), ``serving.launch`` (the
+pipeline's enqueue and the downloads'; on the card its start event is the
+step's first work on the compute stream) and ``serving.fetch`` (the host
+blocked on the results). Counters: ``serving.steps`` handed out,
+``serving.rows`` of frames, ``serving.padded_rows`` of padding and
+``serving.launched_ahead``, the launches made while an earlier step had not
+been handed out yet.
 """
 
 from __future__ import annotations
 
 import collections
 import itertools
+import queue
+import threading
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -275,15 +293,114 @@ def _rows(host: List[np.ndarray], base: int, idxs: List[int]) -> Dict[int, dict]
             for row, stream in enumerate(idxs)}
 
 
+_READY = object()       # the oldest step in flight has its results on the host
+
+
+class _Feeds:
+    """The two threads that feed a server's loop through one queue,
+    :attr:`inbox`. The pull thread runs ``pull(k)`` for k = 0, 1, ..., each
+    once the step before has been launched (:meth:`launched`), and puts what
+    it returns (a step, or None once every stream has ended) or the
+    exception it raised. The ready thread waits on each launched step's
+    download event in turn, without the interpreter lock, and puts
+    ``_READY``. :meth:`close` stops and joins both."""
+
+    def __init__(self, pull: Callable[[int], Optional[tuple]]):
+        self.inbox: queue.SimpleQueue = queue.SimpleQueue()
+        self._pull = pull
+        self._slot = threading.Semaphore(1)
+        self._events: queue.SimpleQueue = queue.SimpleQueue()
+        self._stop = False
+        self._threads = [threading.Thread(target=work, name=name, daemon=True)
+                         for work, name in ((self._pulls, "serving.pull"),
+                                            (self._waits, "serving.ready"))]
+        for t in self._threads:
+            t.start()
+
+    def _pulls(self) -> None:
+        try:
+            for k in itertools.count():
+                self._slot.acquire()
+                if self._stop:
+                    return
+                got = self._pull(k)
+                self.inbox.put(got)
+                if got is None:
+                    return
+        except BaseException as e:      # raised again by the caller of run()
+            self.inbox.put(e)
+
+    def _waits(self) -> None:
+        for done in iter(self._events.get, self):      # itself: the end
+            try:
+                if done is not None:
+                    done.synchronize()
+            except Exception:   # a device error: the hand-out's own wait raises it
+                pass
+            self.inbox.put(_READY)
+
+    def launched(self, done) -> None:
+        """A step is launched, ``done`` its download's event (None: its
+        results are in): wait on it, and pull the next step."""
+        self._events.put(done)
+        self._slot.release()
+
+    def close(self) -> None:
+        self._stop = True
+        self._slot.release()
+        self._events.put(self)
+        for t in self._threads:
+            t.join()
+
+
+def _serve(pull: Callable[[int], Optional[tuple]],
+           launch: Callable[[tuple], tuple]) -> Iterator[tuple]:
+    """The loop both servers run. ``pull(k)``, on the pull thread, gives
+    step k's frames with its open ``serving.step`` span, or None once every
+    stream has ended; ``launch(pulled)``, on this thread, enqueues them and
+    returns (the span, what :meth:`_Lane.fetch` takes, what the caller
+    needs back). Yields (what the caller needs back, the host arrays) of
+    each step in order, at most two in flight, acting on whichever comes
+    first: a step's frames (launched at once if fewer than two are in
+    flight) or the oldest step's results (handed out). A source's exception
+    is raised once the steps pulled before it are handed out; the threads
+    are joined on every way out."""
+    feeds = _Feeds(pull)
+    flight: collections.deque = collections.deque()
+    pulled: collections.deque = collections.deque()    # waiting for room in flight
+    end = None          # True once the pull has ended, or the source's exception
+    try:
+        while flight or end is None:
+            got = feeds.inbox.get()
+            if got is _READY:
+                step, pending, back = flight.popleft()
+                yield back, _Lane.hand_out(step, pending)
+            elif got is None or isinstance(got, BaseException):
+                end = got or True
+            else:
+                pulled.append(got)
+            while pulled and len(flight) < 2:
+                if flight:
+                    profiling.count("serving.launched_ahead")
+                step, pending, back = launch(pulled.popleft())
+                flight.append((step, pending, back))
+                feeds.launched(pending[1])
+        if end is not True:
+            raise end
+    finally:
+        feeds.close()
+
+
 class StreamServer:
     """Aggregates streams into pipeline batches, one frame of each per step.
 
-    Each step pulls one frame per live stream, pads the batch to the number
-    of streams, runs the pipeline's device-level entry
-    (``InferencePipeline.forward_device``) and yields per-stream results.
-    One extra batch is kept in flight: batch k+1 is gathered, uploaded and
-    launched before batch k is fetched. The server runs on the pipeline's
-    device."""
+    Each step pulls one frame per live stream (on the pull thread), pads
+    the batch to the number of streams, runs the pipeline's device-level
+    entry (``InferencePipeline.forward_device``) and yields per-stream
+    results as soon as they reach the host. A step whose frames are pulled
+    while the one before is still in flight is launched first, so up to two
+    batches are in flight (:func:`_serve`). The server runs on the
+    pipeline's device."""
 
     def __init__(self, pipeline, streams: Sequence[VideoStream], with_pose: bool = False):
         self.pipeline = pipeline
@@ -292,13 +409,17 @@ class StreamServer:
         self.capacity = len(self.streams)
         self._lane = _Lane(resolve_device(pipeline.device), depth=2)
 
-    def _launch(self, k: int):
+    def _pull(self, k: int):
         step = profiling.open_span("serving.step", k)
         with step.child("serving.pull"):
             frames, idxs = _pull_step(self.streams)
         if not frames:
             step.close()        # every stream has ended
             return None
+        return step, frames, idxs
+
+    def _launch(self, pulled):
+        step, frames, idxs = pulled
         with step.child("serving.stage"):
             batch = self._lane.stage((self.capacity, *frames[0].shape), frames[0].dtype)
             for row, f in enumerate(frames):
@@ -308,16 +429,12 @@ class StreamServer:
         _, pending = self._lane.launch(step, self.pipeline.forward_device, x, self.with_pose)
         profiling.count("serving.rows", len(frames))
         profiling.count("serving.padded_rows", self.capacity - len(frames))
-        return step, idxs, pending
+        return step, pending, idxs
 
     def run(self) -> Iterator[Dict[int, dict]]:
         """Yields {stream_index: result dict} per step until every stream
         has ended."""
-        pending = self._launch(0)
-        while pending is not None:
-            step, idxs, out = pending
-            pending = self._launch(step.step + 1)       # the next batch is in flight
-            host = _Lane.hand_out(step, out)
+        for idxs, host in _serve(self._pull, self._launch):
             profiling.count("serving.steps")
             yield _rows(host, 0, idxs)
 
@@ -325,11 +442,13 @@ class StreamServer:
 class DeviceQueueServer:
     """Chunked multi-stream serving: ``chunk`` consecutive frames of every
     stream form one ``(chunk·B, H, W)`` block, one upload and one launch,
-    and blocks are double-buffered as :class:`StreamServer`'s batches are.
-    The launch's fixed costs (the host's work per batch, the pose graph's
-    replay) are shared by ``chunk`` steps at the price of ``chunk`` frame
-    intervals of latency. Yields the same per-step dicts as
-    :meth:`StreamServer.run`, in the same order.
+    served as :class:`StreamServer`'s batches are (:func:`_serve`: the pull
+    thread pulls the next block while one is in flight, and a block is
+    handed out as soon as its results reach the host). The launch's fixed
+    costs (the host's work per batch, the pose graph's replay) are shared
+    by ``chunk`` steps at the price of ``chunk`` frame intervals of
+    latency. Yields the same per-step dicts as :meth:`StreamServer.run`, in
+    the same order.
 
     The first launch is refused (``ValueError``) when the block cannot fit
     the device's memory (:func:`check_hbm_budget`; ``hbm_bytes`` None → the
@@ -350,7 +469,7 @@ class DeviceQueueServer:
         self.hbm_bytes = hbm_bytes if hbm_bytes is not None else _device_bytes(device)
         self._lane = _Lane(device, depth=2)
 
-    def _launch(self, k: int):
+    def _pull(self, k: int):
         block = profiling.open_span("serving.step", k)
         steps = []
         with block.child("serving.pull"):
@@ -362,6 +481,10 @@ class DeviceQueueServer:
         if not steps:
             block.close()       # every stream has ended
             return None
+        return block, steps
+
+    def _launch(self, pulled):
+        block, steps = pulled
         first = steps[0][0][0]
         n = self.chunk * self.capacity
         if self.hbm_bytes is not None:
@@ -385,17 +508,13 @@ class DeviceQueueServer:
         rows = sum(len(frames) for frames, _ in steps)
         profiling.count("serving.rows", rows)
         profiling.count("serving.padded_rows", n - rows)
-        return block, [idxs for _, idxs in steps], pending
+        return block, pending, [idxs for _, idxs in steps]
 
     def run(self) -> Iterator[Dict[int, dict]]:
         """Yields the per-step dicts of :meth:`StreamServer.run`; one
         ``serving.step`` span covers a block, handed out with its first
         step."""
-        pending = self._launch(0)
-        while pending is not None:
-            block, step_idxs, out = pending
-            pending = self._launch(block.step + 1)      # the next chunk is in flight
-            host = _Lane.hand_out(block, out)
+        for step_idxs, host in _serve(self._pull, self._launch):
             for step, idxs in enumerate(step_idxs):
                 profiling.count("serving.steps")
                 yield _rows(host, step * self.capacity, idxs)

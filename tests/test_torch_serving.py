@@ -6,9 +6,15 @@ synchronous ``detect``/``detect_with_pose`` on the very batches they form
 arithmetic) and against each other on ragged stream lengths; the stream
 bookkeeping against the JAX package's servers on the same streams; the
 budget guard's cases of ``tests/test_serving.py`` with the port's own
-constant; ``StageTimer``, ``trace``, ``device_memory_stats``."""
+constant; the servers' threads (a step handed out before the next frames
+come, the threads stopped when the caller stops or a source raises);
+``StageTimer``, ``trace``, ``device_memory_stats``."""
 
+import itertools
 import os
+import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -168,6 +174,176 @@ def test_stream_bookkeeping_matches_the_jax_servers(stream_frames):
             for idx in a:
                 assert sorted(a[idx]) == sorted(b[idx]) == sorted(KEYS)
                 np.testing.assert_allclose(a[idx]["refined"], b[idx]["refined"], rtol=1e-6)
+
+
+# ------------------------------------------------------------ pull thread
+
+class _MeanPipe:
+    """A stand-in pipeline: each frame's mean, as three outputs."""
+    device = torch.device("cpu")
+    hires_scale = 1
+
+    def forward_device(self, x, with_pose):
+        m = x.float().mean(dim=(1, 2))
+        return m, m, m
+
+
+SERVERS = {"stream": lambda p, s: StreamServer(p, s),
+           "queue": lambda p, s: DeviceQueueServer(p, s, chunk=2)}
+CHUNK = {"stream": 1, "queue": 2}
+GATE_S = 5.0
+
+
+def _within(fn, seconds=20.0):
+    """``fn()``'s result, or a failure once it has run ``seconds``."""
+    out = {}
+
+    def work():
+        try:
+            out["value"] = fn()
+        except BaseException as e:
+            out["error"] = e
+
+    t = threading.Thread(target=work, daemon=True)
+    t.start()
+    t.join(seconds)
+    assert not t.is_alive(), f"still running after {seconds} s"
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def _server_threads():
+    return {t for t in threading.enumerate() if t.name in ("serving.pull", "serving.ready")}
+
+
+class _Gate:
+    """Frames that a source may release only once the consumer has received
+    every step of the block before theirs (``chunk`` steps a block): frame
+    k+1 of a stream comes after step k under ``chunk`` 1. A source that
+    waits longer than ``GATE_S`` raises."""
+
+    def __init__(self, chunk):
+        self.chunk = chunk
+        self.received = 0
+        self.cond = threading.Condition()
+
+    def source(self, frames):
+        for i, f in enumerate(frames):
+            need = i // self.chunk * self.chunk
+            with self.cond:
+                if not self.cond.wait_for(lambda: self.received >= need, GATE_S):
+                    raise TimeoutError(f"frame {i} waited {GATE_S} s for step {need - 1}")
+            yield f
+
+    def consume(self, steps):
+        out = []
+        for res in steps:
+            out.append(res)
+            with self.cond:
+                self.received += 1
+                self.cond.notify_all()
+        return out
+
+
+@pytest.mark.parametrize("server", sorted(SERVERS))
+def test_a_step_is_handed_out_before_the_next_frames_come(stream_frames, server):
+    """Each stream's next frames come only once the consumer holds the step
+    before (the block before under chunking): every step still comes out,
+    as it does from sources that never wait. Handing a step out after the
+    next step's pull would wait for the gate until it gives up."""
+    threads_before = _server_threads()
+    make = SERVERS[server]
+    want = list(make(_MeanPipe(), _streams(stream_frames)).run())
+    gate = _Gate(CHUNK[server])
+    before = profiling.counters()
+    got = _within(lambda: gate.consume(make(_MeanPipe(), [
+        VideoStream(gate.source(f)) for f in stream_frames]).run()))
+    assert len(got) == len(want) == 5
+    _assert_steps_equal(got, want, KEYS)
+    assert profiling.counters().get("serving.launched_ahead", 0) == before.get(
+        "serving.launched_ahead", 0)
+    assert _server_threads() <= threads_before
+
+
+@pytest.mark.parametrize("server", sorted(SERVERS))
+def test_steps_keep_their_order_when_the_threads_switch_often(server):
+    """Eight servers at once, each with its two threads, over 40 steps of
+    ready frames, the interpreter switching threads every microsecond:
+    every server's steps come out whole and in order."""
+    threads_before = _server_threads()
+    rng = np.random.default_rng(7)
+    streams = [[rng.integers(0, 255, (4, 4), np.uint8) for _ in range(40 - i)]
+               for i in range(3)]
+    want = [{i: float(np.mean(s[k])) for i, s in enumerate(streams) if k < len(s)}
+            for k in range(40)]
+    got = [None] * 8
+
+    def serve(j):
+        got[j] = [{i: float(r["refined"]) for i, r in res.items()} for res in SERVERS[server](
+            _MeanPipe(), [VideoStream(iter(s)) for s in streams]).run()]
+
+    threads = [threading.Thread(target=serve, args=(j,), daemon=True) for j in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    for steps in got:
+        assert steps is not None and len(steps) == 40
+        for res, ref in zip(steps, want):
+            assert sorted(res) == sorted(ref)
+            np.testing.assert_allclose([res[i] for i in ref], list(ref.values()), rtol=1e-6)
+    assert _server_threads() <= threads_before
+
+
+@pytest.mark.parametrize("server", sorted(SERVERS))
+def test_closing_the_generator_stops_the_threads(stream_frames, server):
+    """An endless source that is always ready: the pull thread is ahead,
+    waiting for its step's launch, when the caller stops after one step."""
+    threads_before = _server_threads()
+    frame = stream_frames[0][0]
+
+    def first_step():
+        steps = SERVERS[server](_MeanPipe(), [VideoStream(itertools.repeat(frame))
+                                              for _ in range(2)]).run()
+        res = next(steps)
+        time.sleep(0.05)        # let the pull thread run ahead
+        steps.close()
+        return res
+
+    res = _within(first_step)
+    assert sorted(res) == [0, 1]
+    np.testing.assert_allclose(res[1]["refined"], frame.mean(), rtol=1e-6)
+    assert _server_threads() <= threads_before
+
+
+@pytest.mark.parametrize("server", sorted(SERVERS))
+def test_a_source_that_raises_reaches_the_caller(stream_frames, server):
+    """The steps pulled before the failure come out, then the source's own
+    exception; the server's threads are gone."""
+    threads_before = _server_threads()
+
+    def failing():
+        yield from stream_frames[0][:2]
+        raise OSError("camera unplugged")
+
+    got = []
+
+    def drain():
+        streams = [VideoStream(failing())] + _streams(stream_frames)[1:]
+        with pytest.raises(OSError, match="camera unplugged"):
+            for res in SERVERS[server](_MeanPipe(), streams).run():
+                got.append(res)
+
+    _within(drain)
+    assert [sorted(r) for r in got] == [[0, 1, 2], [0, 1]]
+    assert _server_threads() <= threads_before
 
 
 def test_pipelined_map_order_and_results(pipe, rng):

@@ -6,17 +6,20 @@ only while a profiler records (and then the program's names are host events
 of the profile), the recorder neither synchronises nor creates device
 events without ``device=True``; the servers record one ``serving.step`` per
 step with its pull, stage, launch and fetch under the same id and count
-rows and padding; a training step records its three phases once each."""
+rows, padding and the launches made ahead of a hand-out; a training step
+records its three phases once each."""
 
 import sys
 import threading
 import time
+import types
+from functools import partial
 
 import numpy as np
 import pytest
 import torch
 
-from deepcharuco_tpu_torch import profiling
+from deepcharuco_tpu_torch import profiling, serving
 from deepcharuco_tpu_torch.configs import default_config
 from deepcharuco_tpu_torch.models import Detector
 from deepcharuco_tpu_torch.pipeline import Camera, InferencePipeline
@@ -41,10 +44,13 @@ def pipe():
                              compute_dtype=torch.float32, device="cpu")
 
 
-def _streams():
+def _frames():
     rng = np.random.default_rng(0)
-    return [VideoStream([rng.integers(0, 255, (H, W), np.uint8) for _ in range(n)])
-            for n in LENGTHS]
+    return [[rng.integers(0, 255, (H, W), np.uint8) for _ in range(n)] for n in LENGTHS]
+
+
+def _streams():
+    return [VideoStream(f) for f in _frames()]
 
 
 def _since(t0, name=None):
@@ -206,6 +212,54 @@ def test_servers_record_one_step_per_step_and_count_rows(pipe, server):
     assert _delta(before, "serving.padded_rows") == launches * capacity - rows
     assert _delta(before, "pipeline.frames") == launches * capacity
     assert _delta(before, "pipeline.pose_captures") == 0       # no graph on the CPU
+
+
+@pytest.mark.parametrize("source", ["ready", "busy", "gated"])
+@pytest.mark.parametrize("server", ["stream", "queue"])
+def test_launches_ahead_of_a_hand_out_are_counted(pipe, monkeypatch, server, source):
+    """``serving.launched_ahead`` with sources that are always ready: at
+    most one fewer than the launches (whether the next frames are pulled
+    before a step's results are in is the threads' timing); exactly that
+    on a card that finishes a step only once the next one is launched (the
+    last after 5 s); none when each step's frames come only once the step
+    before has been received (the block before, chunked). Each step keeps
+    its four children either way."""
+    chunk = 1 if server == "stream" else 3
+    launches = max(LENGTHS) if server == "stream" else 2
+    cond, received = threading.Condition(), [0]
+
+    def gated(frames):
+        for i, f in enumerate(frames):
+            with cond:
+                assert cond.wait_for(lambda: received[0] >= i // chunk * chunk, 5.0), i
+            yield f
+
+    streams = [VideoStream(gated(f) if source == "gated" else f) for f in _frames()]
+    if source == "busy":
+        finished = []
+
+        def download(lane, outs):
+            if finished:
+                finished[-1].set()
+            finished.append(threading.Event())
+            return list(outs), types.SimpleNamespace(synchronize=partial(finished[-1].wait, 5.0))
+
+        monkeypatch.setattr(serving._Lane, "download", download)
+    before = profiling.counters()
+    t0 = time.perf_counter_ns()
+    run = (StreamServer(pipe, streams, with_pose=True) if server == "stream" else
+           DeviceQueueServer(pipe, streams, chunk=chunk, with_pose=True)).run()
+    for _ in run:
+        with cond:
+            received[0] += 1
+            cond.notify_all()
+    assert received[0] == max(LENGTHS)
+    _check_steps(t0, launches, len(PIPELINE))
+    ahead = _delta(before, "serving.launched_ahead")
+    if source == "ready":
+        assert 0 <= ahead <= launches - 1
+    else:
+        assert ahead == (launches - 1 if source == "busy" else 0)
 
 
 def test_pipelined_map_records_one_step_per_batch(pipe):
