@@ -10,11 +10,12 @@ decode kernel (``ops/cuda_decode.py``); ``fused_head=True`` stops the
 detector at its trunk and runs heads + decode in one kernel
 (``ops/cuda_fused.py``).
 
-- :func:`two_stage_forward` — frames → (keypoints, valid, refined)
-- :func:`two_stage_forward_hires` — the same with the detector on a pooled
-  view and RefineNet on full-resolution patches
-- :func:`full_forward`, :func:`full_forward_hires` — + (ok, rvec, tvec,
-  reproj_rms)
+- :func:`two_stage_forward` — frames → (keypoints, valid, refined); at
+  ``scale`` 2 or 4 the hi-res patch tap: the detector on a pooled view,
+  RefineNet on full-resolution patches
+- :func:`full_forward` — + (ok, rvec, tvec, reproj_rms)
+- :func:`two_stage_forward_hires`, :func:`full_forward_hires` — the two with
+  the tap's defaults
 - :class:`Camera` — intrinsics in cv2 conventions
 - :class:`InferencePipeline` — holds the models, numpy in and out
 - :func:`load_pipeline` — builds one from weight files
@@ -124,27 +125,35 @@ _MAX_POSE_GRAPHS = 8
 _FILL_TRUST_PX = 1.5
 
 
-def _check_decode_options(detector, fused_head: bool, decode_capacity: int = 1,
-                          geom: bool = False, geom_fill: bool = False,
-                          geom_name: str = "geom_board_xy (geom decode)"):
-    """The decode options that exclude each other, as ``ValueError``s."""
+def _check_options(detector, fused_head: bool, decode_capacity: int, geom: bool,
+                   geom_fill: bool, scale: int, refiner: bool,
+                   geom_name: str = "geom_board_xy (geom decode)"):
+    """The options that exclude each other, as ``ValueError``s: the decode's,
+    and the hi-res tap's (``scale``, with ``refiner`` whether RefineNet is
+    given)."""
     if geom and decode_capacity > 1:
         raise ValueError("geom decode and decode_capacity>1 are exclusive")
     if geom_fill and not geom:
         raise ValueError(f"geom_fill requires {geom_name}")
-    if not fused_head:
-        return
-    if decode_capacity > 1:
+    if fused_head and decode_capacity > 1:
         raise ValueError("fused_head=True decodes one winner per id in the kernel; "
                          "decode_capacity > 1 needs fused_head=False")
-    if geom:
+    if fused_head and geom:
         raise ValueError("fused_head=True keeps the logits inside the kernel; the geometry "
                          "decode reads them and its top-K candidates: it needs "
                          "fused_head=False")
-    if isinstance(detector, QuantDetector):
+    if fused_head and isinstance(detector, QuantDetector):
         raise ValueError("fused_head=True reads a bf16 trunk and float heads; the int8 "
                          "detector decodes through the decode kernel: it needs "
                          "fused_head=False")
+    if scale not in (1, 2, 4):
+        raise ValueError(f"hires accepts True/2/4 (the tap supports scale 2 or 4), "
+                         f"got scale {scale}")
+    if scale > 1 and not refiner:
+        raise ValueError("hires tap needs RefineNet weights "
+                         "(the full-res patches ARE the point)")
+    if scale > 1 and decode_capacity > 1:
+        raise ValueError("hires does not support decode_capacity > 1")
 
 
 def _to_gray_input(frames: torch.Tensor) -> torch.Tensor:
@@ -187,41 +196,40 @@ def _apply_refiner(refinenet: RefineNet, patches: torch.Tensor,
     return refine_keypoints(heat, keypoints)
 
 
-def _decode(detector, g: torch.Tensor, n_ids: int, min_margin,
-            fused_head: bool, folded):
-    """Detector + one-slot decode on normalized gray frames."""
-    if fused_head:
-        if folded is None:
-            folded = head_params(detector_variables(detector.state_dict()), n_ids,
-                                 g.device)
-        with profiling.span("pipeline.detector"):
-            trunk = detector(g, trunk_only=True)["trunk"]
-        with profiling.span("pipeline.decode"):
-            return fused_head_decode(trunk, folded, n_ids, min_margin)
+def _decode(detector, g: torch.Tensor, n_ids: int, min_margin, capacity: int,
+            fused_head: bool, folded, board_xy, fill: bool, ransac: int, noise):
+    """Detector + the decode the options select, on normalized gray frames
+    → (keypoints, valid, filled): the fused head + decode kernel
+    (``fused_head``), the geometry decode (``board_xy``; with ``fill`` its
+    fills, reckoned in the units of ``g``'s pixel grid), the top-K decode
+    (``capacity > 1``: keypoints (N, n_ids·K, 2) in slot order, valid
+    (N, n_ids, K)) or the decode kernel. ``filled`` is all False but for
+    the geometry decode's fills."""
+    if fused_head and folded is None:
+        folded = head_params(detector_variables(detector.state_dict()), n_ids, g.device)
+    if board_xy is not None:
+        board_xy = torch.as_tensor(board_xy, dtype=torch.float32).to(g.device)
+        if noise is not None:
+            noise = tuple(torch.as_tensor(t, dtype=torch.float32).to(g.device) for t in noise)
     with profiling.span("pipeline.detector"):
-        out = detector(g)
+        out = detector(g, trunk_only=True)["trunk"] if fused_head else detector(g)
     with profiling.span("pipeline.decode"):
-        return pred_to_keypoints(out["loc"], out["ids"], n_ids, min_margin=min_margin)
-
-
-def _decode_geom(detector, g: torch.Tensor, n_ids: int, min_margin, board_xy,
-                 fill: bool, ransac: int, noise):
-    """Detector + geometry decode (+ fill) on normalized gray frames →
-    (keypoints, valid, filled). The fills are reckoned in the units of
-    ``g``'s pixel grid."""
-    dev = g.device
-    board_xy = torch.as_tensor(board_xy, dtype=torch.float32).to(dev)
-    if noise is not None:
-        noise = tuple(torch.as_tensor(t, dtype=torch.float32).to(dev) for t in noise)
-    with profiling.span("pipeline.detector"):
-        out = detector(g)
-    with profiling.span("pipeline.decode"):
-        keypoints, valid = pred_to_keypoints_geom(out["loc"], out["ids"], n_ids, board_xy,
-                                                  min_margin=min_margin,
-                                                  ransac_subsets=ransac, noise=noise)
-        if not fill:
-            return keypoints, valid, torch.zeros_like(valid)
-        return fill_from_homography(keypoints, valid, board_xy, tuple(g.shape[1:3]))
+        if fused_head:
+            keypoints, valid = fused_head_decode(out, folded, n_ids, min_margin)
+        elif board_xy is not None:
+            keypoints, valid = pred_to_keypoints_geom(out["loc"], out["ids"], n_ids, board_xy,
+                                                      min_margin=min_margin,
+                                                      ransac_subsets=ransac, noise=noise)
+            if fill:
+                return fill_from_homography(keypoints, valid, board_xy, tuple(g.shape[1:3]))
+        elif capacity > 1:
+            kp_k, valid = pred_to_keypoints_topk(out["loc"], out["ids"], n_ids,
+                                                 capacity=capacity, min_margin=min_margin)
+            keypoints = kp_k.reshape(kp_k.shape[0], n_ids * capacity, 2)
+        else:
+            keypoints, valid = pred_to_keypoints(out["loc"], out["ids"], n_ids,
+                                                 min_margin=min_margin)
+        return keypoints, valid, torch.zeros_like(valid)
 
 
 def _trust_fills(refined: torch.Tensor, keypoints: torch.Tensor,
@@ -239,10 +247,9 @@ def _trust_fills(refined: torch.Tensor, keypoints: torch.Tensor,
 @torch.inference_mode()
 def two_stage_forward(detector, refinenet: Optional[RefineNet], frames,
                       n_ids: int, min_margin: Optional[float] = None,
-                      soft_refine: bool = False, decode_capacity: int = 1,
-                      rn_decode: Optional[str] = None, geom_board_xy=None,
-                      geom_fill: bool = False, geom_ransac: int = 32,
-                      return_filled: bool = False, geom_noise=None,
+                      decode_capacity: int = 1, rn_decode: Optional[str] = None,
+                      geom_board_xy=None, geom_fill: bool = False, geom_ransac: int = 32,
+                      return_filled: bool = False, geom_noise=None, scale: int = 1,
                       fused_head: bool = False,
                       folded: Optional[Dict[str, torch.Tensor]] = None,
                       device=None):
@@ -258,17 +265,28 @@ def two_stage_forward(detector, refinenet: Optional[RefineNet], frames,
     ``folded`` (``cuda_fused.head_params`` of the detector on the device;
     made here when None).
 
+    ``scale`` 2 or 4 is the hi-res patch tap: ``frames`` are
+    (N, s·H, s·W[, C]), e.g. the camera's native 640×480 when the detector
+    runs its 320×240 grid (``scale=2``). The detector sees the view pooled
+    log2(scale) times (``ops.downsample2x``), so its cost is unchanged, and
+    RefineNet, which the tap needs, sees ``scale``× the detail in patches
+    of the same size. Each 2×2 average pool puts pooled center x at
+    full-resolution coordinate 2x + 0.5; composed, x_hi = s·x_lo + (s−1)/2,
+    so the refined full-resolution positions map back as (x_hi − (s−1)/2)/s.
+    Every output is in pooled-view (low-res) units, comparable with the
+    base resolution's.
+
     ``rn_decode`` selects the refinement decode: ``"hard"`` (argmax, the
-    default), ``"soft"`` (soft-argmax; ``soft_refine=True`` is the same),
-    ``"offset"`` (the offset-regression branch) or ``"avg"`` (the mean of
-    the soft-argmax and offset estimates); the last two need a
-    ``RefineNet(offset_head=True)``.
+    default), ``"soft"`` (soft-argmax), ``"offset"`` (the offset-regression
+    branch) or ``"avg"`` (the mean of the soft-argmax and offset estimates);
+    the last two need a ``RefineNet(offset_head=True)``.
 
     ``decode_capacity > 1`` switches to the duplicate-preserving decode
     (``ops.pred_to_keypoints_topk``): K slots per id, every decoded cell
     refined. Shapes become (N, n_ids, K, 2) / (N, n_ids, K) /
     (N, n_ids, K, 2); slot [:, :, 0] is the default decode's winner. The
-    fused kernel keeps one winner per id, so it cannot serve this decode.
+    fused kernel keeps one winner per id, and the hi-res tap one slot, so
+    neither serves this decode.
 
     ``geom_board_xy`` (the board's inner-corner plane coordinates,
     (n_ids, 2)) switches to the geometry-consistent decode
@@ -277,97 +295,47 @@ def two_stage_forward(detector, refinenet: Optional[RefineNet], frames,
     exclusive with ``decode_capacity > 1`` and with ``fused_head``.
     ``geom_fill`` (needs ``geom_board_xy``) also predicts every undetected
     in-frame id at its homography-projected position
-    (``ops.fill_from_homography``) and refines it in the same RefineNet
-    pass. ``return_filled=True`` appends the ``filled`` mask (N, n_ids) to
-    the result (all False without ``geom_fill``)."""
-    geom = geom_board_xy is not None
-    _check_decode_options(detector, fused_head, decode_capacity, geom, geom_fill)
+    (``ops.fill_from_homography``, in pooled-view units) and refines it in
+    the same RefineNet pass. ``return_filled=True`` appends the ``filled``
+    mask (N, n_ids) to the result (all False without ``geom_fill``)."""
+    _check_options(detector, fused_head, decode_capacity, geom_board_xy is not None,
+                   geom_fill, scale, refinenet is not None)
     dev = resolve_device(device)
     g = _to_gray_input(torch.as_tensor(frames).to(dev, non_blocking=True))
-    filled = None
-    if decode_capacity > 1:
-        with profiling.span("pipeline.detector"):
-            out = detector(g)
-        with profiling.span("pipeline.decode"):
-            kp_k, valid = pred_to_keypoints_topk(out["loc"], out["ids"], n_ids,
-                                                 capacity=decode_capacity,
-                                                 min_margin=min_margin)
-        keypoints = kp_k.reshape(kp_k.shape[0], n_ids * decode_capacity, 2)
-    elif geom:
-        keypoints, valid, filled = _decode_geom(detector, g, n_ids, min_margin,
-                                                geom_board_xy, geom_fill, geom_ransac,
-                                                geom_noise)
-    else:
-        keypoints, valid = _decode(detector, g, n_ids, min_margin, fused_head, folded)
-    if filled is None:
-        filled = torch.zeros_like(valid)
+    g_lo = g
+    for _ in range(scale.bit_length() - 1):
+        g_lo = downsample2x(g_lo)
+    keypoints, valid, filled = _decode(detector, g_lo, n_ids, min_margin, decode_capacity,
+                                       fused_head, folded, geom_board_xy, geom_fill,
+                                       geom_ransac, geom_noise)
     out_shape = valid.shape + (2,)
     if refinenet is None:
         refined = keypoints = keypoints.reshape(out_shape)
     else:
+        # integer patch centers in the frame the patches are cut from
+        centers = keypoints if scale == 1 else float(scale) * keypoints
         with profiling.span("pipeline.patches"):
-            patches = extract_patches(g, keypoints, patch_size=refinenet.patch_size)
-        mode = rn_decode or ("soft" if soft_refine else "hard")
+            patches = extract_patches(g, centers, patch_size=refinenet.patch_size)
         with profiling.span("pipeline.refinenet"):
-            refined = _apply_refiner(refinenet, patches, keypoints, mode)
+            refined = _apply_refiner(refinenet, patches, centers, rn_decode or "hard")
+            if scale > 1:
+                refined = (refined - (scale - 1) * 0.5) / scale
             if geom_fill:
                 refined = _trust_fills(refined, keypoints, filled)
-        keypoints, refined = keypoints.reshape(out_shape), refined.reshape(out_shape)
+        if scale == 1:      # a top-K decode's slots back per id (the tap has one slot)
+            keypoints, refined = keypoints.reshape(out_shape), refined.reshape(out_shape)
     return (keypoints, valid, refined, filled) if return_filled else \
         (keypoints, valid, refined)
 
 
-@torch.inference_mode()
-def two_stage_forward_hires(detector, refinenet: RefineNet, frames_hi,
-                            n_ids: int, min_margin: Optional[float] = None,
-                            rn_decode: str = "soft", geom_board_xy=None,
-                            geom_fill: bool = False, geom_ransac: int = 32,
-                            return_filled: bool = False, geom_noise=None,
-                            scale: int = 2, fused_head: bool = False,
-                            folded: Optional[Dict[str, torch.Tensor]] = None,
-                            device=None):
-    """Hi-res patch tap: the detector on a ``scale``×-downsampled view,
-    RefineNet on full-resolution patches.
-
-    ``frames_hi`` are (N, s·H, s·W[, C]), e.g. the camera's native 640×480
-    when the detector runs its 320×240 grid (``scale=2``). The detector's
-    cost is unchanged (it sees the pooled view) and the refiner sees
-    ``scale``× the detail in patches of the same size.
-
-    Coordinate contract: each 2×2 average pool puts low-res center x at
-    hi-res coordinate 2x + 0.5 (``ops.downsample2x``); composed
-    log2(scale) times that is x_hi = s·x_lo + (s−1)/2, so refined hi-res
-    positions map back as (x_hi − (s−1)/2)/s. Returns (keypoints, valid,
-    refined) in LOW-res pixel units, comparable with
-    :func:`two_stage_forward`'s. The geometry options are
-    :func:`two_stage_forward`'s; the fills and their trust guard live in
-    pooled-view (low-res) units."""
-    if scale not in (2, 4):
-        raise ValueError(f"hires tap supports scale 2 or 4, got {scale}")
-    geom = geom_board_xy is not None
-    _check_decode_options(detector, fused_head, 1, geom, geom_fill)
-    dev = resolve_device(device)
-    g_hi = _to_gray_input(torch.as_tensor(frames_hi).to(dev, non_blocking=True))
-    g_lo = g_hi
-    for _ in range(scale.bit_length() - 1):
-        g_lo = downsample2x(g_lo)
-    if geom:
-        keypoints, valid, filled = _decode_geom(detector, g_lo, n_ids, min_margin,
-                                                geom_board_xy, geom_fill, geom_ransac,
-                                                geom_noise)
-    else:
-        keypoints, valid = _decode(detector, g_lo, n_ids, min_margin, fused_head, folded)
-        filled = torch.zeros_like(valid)
-    kp_hi = float(scale) * keypoints            # integer patch centers, hi-res frame
-    with profiling.span("pipeline.patches"):
-        patches = extract_patches(g_hi, kp_hi, patch_size=refinenet.patch_size)
-    with profiling.span("pipeline.refinenet"):
-        refined_hi = _apply_refiner(refinenet, patches, kp_hi, rn_decode)
-        refined = (refined_hi - (scale - 1) * 0.5) / scale
-        if geom_fill:
-            refined = _trust_fills(refined, keypoints, filled)
-    return (keypoints, valid, refined, filled) if return_filled else \
-        (keypoints, valid, refined)
+def two_stage_forward_hires(detector, refinenet: RefineNet, frames_hi, n_ids: int,
+                            min_margin: Optional[float] = None, rn_decode: str = "soft",
+                            scale: int = 2, **options):
+    """:func:`two_stage_forward` as the hi-res patch tap: ``scale`` 2 and
+    the soft refinement decode unless given; ``options`` are the other
+    keywords of :func:`two_stage_forward`."""
+    return two_stage_forward(detector, refinenet, frames_hi, n_ids, min_margin,
+                             rn_decode=rn_decode, scale=scale, **options)
 
 
 def _solve(object_points, refined, valid, K, dist, pnp_iters):
@@ -380,48 +348,39 @@ def _solve(object_points, refined, valid, K, dist, pnp_iters):
 @torch.inference_mode()
 def full_forward(detector, refinenet: Optional[RefineNet], frames,
                  n_ids: int, object_points, K, dist, pnp_iters: int = 20,
-                 soft_refine: bool = False, min_margin: Optional[float] = None,
-                 rn_decode: Optional[str] = None, geom_board_xy=None,
-                 geom_fill: bool = False, geom_ransac: int = 32, geom_noise=None,
-                 fused_head: bool = False,
+                 min_margin: Optional[float] = None, rn_decode: Optional[str] = None,
+                 geom_board_xy=None, geom_fill: bool = False, geom_ransac: int = 32,
+                 geom_noise=None, scale: int = 1, fused_head: bool = False,
                  folded: Optional[Dict[str, torch.Tensor]] = None, device=None):
     """:func:`two_stage_forward` + batched planar PnP. Returns (keypoints,
     valid, refined, ok (N,), rvec (N, 3), tvec (N, 3), reproj_rms (N,)).
+
+    ``K``/``dist`` are in the pixel units the corners come in: for the hi-res
+    tap (``scale`` 2 or 4) the pooled view's, so convert a camera calibrated
+    at the input resolution with ``Camera.scaled(1/scale)``.
 
     With ``geom_fill`` the pose is solved from the measured detections only:
     filled corners lie on the fitted homography by construction, add no
     independent evidence, and their correlated extrapolation error would
     bias the pose. The returned corner set still holds the fills."""
     keypoints, valid, refined, filled = two_stage_forward(
-        detector, refinenet, frames, n_ids, min_margin=min_margin,
-        soft_refine=soft_refine, rn_decode=rn_decode, geom_board_xy=geom_board_xy,
-        geom_fill=geom_fill, geom_ransac=geom_ransac, return_filled=True,
-        geom_noise=geom_noise, fused_head=fused_head, folded=folded, device=device)
+        detector, refinenet, frames, n_ids, min_margin=min_margin, rn_decode=rn_decode,
+        geom_board_xy=geom_board_xy, geom_fill=geom_fill, geom_ransac=geom_ransac,
+        return_filled=True, geom_noise=geom_noise, scale=scale, fused_head=fused_head,
+        folded=folded, device=device)
     return (keypoints, valid, refined,
             *_solve(object_points, refined, valid & ~filled, K, dist, pnp_iters))
 
 
-@torch.inference_mode()
-def full_forward_hires(detector, refinenet: RefineNet, frames_hi,
-                       n_ids: int, object_points, K, dist, pnp_iters: int = 20,
+def full_forward_hires(detector, refinenet: RefineNet, frames_hi, n_ids: int,
+                       object_points, K, dist, pnp_iters: int = 20,
                        min_margin: Optional[float] = None, rn_decode: str = "soft",
-                       geom_board_xy=None, geom_fill: bool = False,
-                       geom_ransac: int = 32, geom_noise=None, scale: int = 2,
-                       fused_head: bool = False,
-                       folded: Optional[Dict[str, torch.Tensor]] = None, device=None):
-    """:func:`two_stage_forward_hires` + batched planar PnP (from the
-    measured detections only, as :func:`full_forward`).
-
-    ``K``/``dist`` must be in the LOW-res (pooled-view) pixel units the tap
-    reports corners in: convert a camera calibrated at the hi-res input
-    resolution with ``Camera.scaled(1/scale)``."""
-    keypoints, valid, refined, filled = two_stage_forward_hires(
-        detector, refinenet, frames_hi, n_ids, min_margin=min_margin,
-        rn_decode=rn_decode, geom_board_xy=geom_board_xy, geom_fill=geom_fill,
-        geom_ransac=geom_ransac, return_filled=True, geom_noise=geom_noise,
-        scale=scale, fused_head=fused_head, folded=folded, device=device)
-    return (keypoints, valid, refined,
-            *_solve(object_points, refined, valid & ~filled, K, dist, pnp_iters))
+                       scale: int = 2, **options):
+    """:func:`full_forward` as the hi-res patch tap: ``scale`` 2 and the
+    soft refinement decode unless given; ``K``/``dist`` in the pooled
+    view's units (``Camera.scaled(1/scale)``)."""
+    return full_forward(detector, refinenet, frames_hi, n_ids, object_points, K, dist,
+                        pnp_iters, min_margin, rn_decode=rn_decode, scale=scale, **options)
 
 
 def is_quantized_npz(ckpt: Optional[str]) -> bool:
@@ -538,8 +497,8 @@ def load_pipeline(config: Config, deepc_ckpt: Optional[str] = None,
                   hires=False, geom_decode: bool = False, geom_fill: bool = False,
                   geom_ransac: int = 32, geom_noise=None,
                   min_margin: Optional[float] = None, pnp_iters: int = 20,
-                  soft_refine: bool = False, decode_capacity: int = 1,
-                  fused_head: bool = False, device=None) -> "InferencePipeline":
+                  decode_capacity: int = 1, fused_head: bool = False,
+                  device=None) -> "InferencePipeline":
     """An :class:`InferencePipeline` from weight files in any form
     :func:`load_model_variables` takes (None → the detector gets seeded
     random weights, the refiner is left out).
@@ -553,8 +512,8 @@ def load_pipeline(config: Config, deepc_ckpt: Optional[str] = None,
           if refinenet_ckpt is not None else None)
     return InferencePipeline(config, dv, rv, camera=camera, det_quant=det_quant,
                              compute_dtype=compute_dtype, pnp_iters=pnp_iters,
-                             soft_refine=soft_refine, min_margin=min_margin,
-                             rn_upsample=rn_upsample, rn_patch_size=rn_patch_size,
+                             min_margin=min_margin, rn_upsample=rn_upsample,
+                             rn_patch_size=rn_patch_size,
                              decode_capacity=decode_capacity,
                              rn_decode=rn_decode, hires=hires,
                              geom_decode=geom_decode, geom_fill=geom_fill,
@@ -591,7 +550,7 @@ class InferencePipeline:
     def __init__(self, config: Config, det_vars, rn_vars=None,
                  camera: Optional[Camera] = None,
                  compute_dtype=torch.bfloat16, pnp_iters: int = 20,
-                 soft_refine: bool = False, min_margin: Optional[float] = None,
+                 min_margin: Optional[float] = None,
                  rn_upsample: str = "nearest", rn_patch_size: int = 24,
                  decode_capacity: int = 1, rn_decode: Optional[str] = None,
                  hires=False, geom_decode: bool = False, geom_fill: bool = False,
@@ -606,26 +565,16 @@ class InferencePipeline:
         else:
             detector = load_state(Detector(n_ids=config.n_ids, dtype=compute_dtype),
                                   detector_state_dict(det_vars))
-        _check_decode_options(detector, fused_head, decode_capacity, geom_decode,
-                              geom_fill, geom_name="geom_decode=True")
         self.hires_scale = (2 if hires is True else int(hires)) if hires else 1
-        self.hires = bool(hires)
-        if hires:
-            if self.hires_scale not in (2, 4):
-                raise ValueError(f"hires accepts True/2/4, got {hires!r}")
-            if rn_vars is None:
-                raise ValueError("hires tap needs RefineNet weights "
-                                 "(the full-res patches ARE the point)")
-            if decode_capacity > 1:
-                raise ValueError("hires does not support decode_capacity > 1")
+        _check_options(detector, fused_head, decode_capacity, geom_decode, geom_fill,
+                       self.hires_scale, rn_vars is not None, geom_name="geom_decode=True")
         self.config = config
         self.n_ids = config.n_ids
         self.min_margin = min_margin
         self.fused_head = fused_head
         self.pnp_iters = pnp_iters
         self.decode_capacity = decode_capacity
-        self.rn_decode = (rn_decode or "soft") if hires else \
-            rn_decode or ("soft" if soft_refine else "hard")
+        self.rn_decode = rn_decode or ("soft" if self.hires else "hard")
         self.detector = detector.to(self.device).eval()
         self.refinenet = None
         if rn_vars is not None:
@@ -644,8 +593,13 @@ class InferencePipeline:
         self._pose_graphs: Dict[int, tuple] = {}
         profiling.anchor(self.device)
         if camera is not None:
-            cam = camera.scaled(1.0 / self.hires_scale) if hires else camera
+            cam = camera.scaled(1.0 / self.hires_scale) if self.hires else camera
             self._K, self._dist = as_dev(cam.K), as_dev(cam.dist)
+
+    @property
+    def hires(self) -> bool:
+        """Whether the hi-res patch tap is on (``hires_scale`` 2 or 4)."""
+        return self.hires_scale > 1
 
     def _refinenet(self, rn_vars, dtype, upsample, patch_size) -> RefineNet:
         """The RefineNet variant the options ask for, with ``rn_vars``; a
@@ -730,18 +684,12 @@ class InferencePipeline:
         if with_pose and self.camera is None:
             raise ValueError("InferencePipeline was built without a Camera")
         profiling.count("pipeline.frames", len(frames))
-        common = dict(min_margin=self.min_margin, rn_decode=self.rn_decode,
-                      fused_head=self.fused_head, folded=self.folded,
-                      return_filled=True, device=self.device, **self._geom)
-        if self.hires:
-            out = two_stage_forward_hires(self.detector, self.refinenet, frames,
-                                          self.n_ids, scale=self.hires_scale, **common)
-        else:
-            if not with_pose:       # the pose path is per id: one slot
-                common.update(decode_capacity=self.decode_capacity)
-            out = two_stage_forward(self.detector, self.refinenet, frames,
-                                    self.n_ids, **common)
-        keypoints, valid, refined, filled = out
+        keypoints, valid, refined, filled = two_stage_forward(
+            self.detector, self.refinenet, frames, self.n_ids, self.min_margin,
+            decode_capacity=1 if with_pose else self.decode_capacity,   # pose: per id
+            rn_decode=self.rn_decode, return_filled=True, scale=self.hires_scale,
+            fused_head=self.fused_head, folded=self.folded, device=self.device,
+            **self._geom)
         if not with_pose:
             return keypoints, valid, refined
         # the pose comes from the measured detections only (full_forward)

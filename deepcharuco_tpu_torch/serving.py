@@ -15,10 +15,10 @@ N independent video streams go through one
   the launches, and hands a step out as soon as its results reach the
   host, never after the next step's frames.
 
-:class:`StreamServer` is the latency-first server, one batch per step;
 :class:`DeviceQueueServer` gathers ``chunk`` steps of every stream into one
 block and one launch (throughput first, ``chunk`` frame intervals of added
-latency); both run :func:`_serve`. :func:`pipelined_map` pipelines a
+latency); :class:`StreamServer`, the latency-first server, is the same
+server at ``chunk=1``, one batch per step. :func:`pipelined_map` pipelines a
 function over batches that are already formed, on the caller's thread.
 
 The serving loop (:func:`_serve`) waits on one queue that two threads of
@@ -391,64 +391,19 @@ def _serve(pull: Callable[[int], Optional[tuple]],
         feeds.close()
 
 
-class StreamServer:
-    """Aggregates streams into pipeline batches, one frame of each per step.
-
-    Each step pulls one frame per live stream (on the pull thread), pads
-    the batch to the number of streams, runs the pipeline's device-level
-    entry (``InferencePipeline.forward_device``) and yields per-stream
-    results as soon as they reach the host. A step whose frames are pulled
-    while the one before is still in flight is launched first, so up to two
-    batches are in flight (:func:`_serve`). The server runs on the
-    pipeline's device."""
-
-    def __init__(self, pipeline, streams: Sequence[VideoStream], with_pose: bool = False):
-        self.pipeline = pipeline
-        self.streams = list(streams)
-        self.with_pose = with_pose
-        self.capacity = len(self.streams)
-        self._lane = _Lane(resolve_device(pipeline.device), depth=2)
-
-    def _pull(self, k: int):
-        step = profiling.open_span("serving.step", k)
-        with step.child("serving.pull"):
-            frames, idxs = _pull_step(self.streams)
-        if not frames:
-            step.close()        # every stream has ended
-            return None
-        return step, frames, idxs
-
-    def _launch(self, pulled):
-        step, frames, idxs = pulled
-        with step.child("serving.stage"):
-            batch = self._lane.stage((self.capacity, *frames[0].shape), frames[0].dtype)
-            for row, f in enumerate(frames):
-                batch[row] = f
-            batch[len(frames):] = 0      # pad to capacity: one shape for the whole run
-            x = self._lane.upload()
-        _, pending = self._lane.launch(step, self.pipeline.forward_device, x, self.with_pose)
-        profiling.count("serving.rows", len(frames))
-        profiling.count("serving.padded_rows", self.capacity - len(frames))
-        return step, pending, idxs
-
-    def run(self) -> Iterator[Dict[int, dict]]:
-        """Yields {stream_index: result dict} per step until every stream
-        has ended."""
-        for idxs, host in _serve(self._pull, self._launch):
-            profiling.count("serving.steps")
-            yield _rows(host, 0, idxs)
-
-
 class DeviceQueueServer:
-    """Chunked multi-stream serving: ``chunk`` consecutive frames of every
-    stream form one ``(chunk·B, H, W)`` block, one upload and one launch,
-    served as :class:`StreamServer`'s batches are (:func:`_serve`: the pull
-    thread pulls the next block while one is in flight, and a block is
-    handed out as soon as its results reach the host). The launch's fixed
-    costs (the host's work per batch, the pose graph's replay) are shared
-    by ``chunk`` steps at the price of ``chunk`` frame intervals of
-    latency. Yields the same per-step dicts as :meth:`StreamServer.run`, in
-    the same order.
+    """Multi-stream serving in blocks: ``chunk`` consecutive frames of every
+    live stream form one ``(chunk·B, H, W)`` block, padded with zero frames
+    to ``chunk`` × the number of streams (one shape for the whole run: one
+    set of cuDNN plans and one pose graph), one upload and one launch of the
+    pipeline's device-level entry (``InferencePipeline.forward_device``).
+    The pull thread pulls the next block while one is in flight, a block
+    whose frames come first is launched first, so up to two blocks are in
+    flight, and a block is handed out as soon as its results reach the host
+    (:func:`_serve`). The launch's fixed costs (the host's work per batch,
+    the pose graph's replay) are shared by ``chunk`` steps at the price of
+    ``chunk`` frame intervals of latency. :meth:`run` yields one dict of
+    per-stream results per step. The server runs on the pipeline's device.
 
     The first launch is refused (``ValueError``) when the block cannot fit
     the device's memory (:func:`check_hbm_budget`; ``hbm_bytes`` None → the
@@ -490,7 +445,7 @@ class DeviceQueueServer:
         if self.hbm_bytes is not None:
             s = getattr(self.pipeline, "hires_scale", 1) or 1
             check_hbm_budget(n, first.shape[0] // s, first.shape[1] // s, self.hbm_bytes,
-                             context=f"DeviceQueueServer chunk={self.chunk} x "
+                             context=f"{type(self).__name__} chunk={self.chunk} x "
                                      f"{self.capacity} streams")
         # short steps and a short last chunk are padded with zero frames:
         # one shape (chunk·capacity) serves the whole run
@@ -511,10 +466,18 @@ class DeviceQueueServer:
         return block, pending, [idxs for _, idxs in steps]
 
     def run(self) -> Iterator[Dict[int, dict]]:
-        """Yields the per-step dicts of :meth:`StreamServer.run`; one
-        ``serving.step`` span covers a block, handed out with its first
-        step."""
+        """Yields {stream_index: result dict} per step until every stream
+        has ended; one ``serving.step`` span covers a block, handed out with
+        its first step."""
         for step_idxs, host in _serve(self._pull, self._launch):
             for step, idxs in enumerate(step_idxs):
                 profiling.count("serving.steps")
                 yield _rows(host, step * self.capacity, idxs)
+
+
+class StreamServer(DeviceQueueServer):
+    """The latency-first server: the block server at ``chunk=1``, one frame
+    of every live stream per step and per launch."""
+
+    def __init__(self, pipeline, streams: Sequence[VideoStream], with_pose: bool = False):
+        super().__init__(pipeline, streams, chunk=1, with_pose=with_pose)

@@ -348,10 +348,6 @@ def test_refinement_decodes_f32_match_jax(fix, mode):
             jvariables_from_npz(DET), jvariables_from_npz(RN), jnp.asarray(fix["frames"][:2]))
         ref = tuple(np.asarray(o) for o in ref)
         got = pipe.detect(fix["frames"][:2])
-        same = InferencePipeline(CFG, variables_from_npz(DET), variables_from_npz(RN),
-                                 soft_refine=True, compute_dtype=torch.float32,
-                                 device="cpu").detect(fix["frames"][:2])
-        np.testing.assert_array_equal(same[2], got[2])
     else:
         ref = (fix["keypoints_f32"], fix["valid_f32"], fix[f"refined_{mode}_f32"])
         got = pipe.detect(fix["frames"])

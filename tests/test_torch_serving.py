@@ -405,14 +405,22 @@ def test_hbm_budget_guard_ceiling():
         two_stage_batch_ceiling(8, 8, device="cpu")
 
 
-def test_device_queue_server_rejects_oversized_chunk(pipe):
-    """The server itself guards its first launch."""
+@pytest.mark.parametrize("server", ["DeviceQueueServer", "StreamServer"])
+def test_device_queue_server_rejects_oversized_chunk(pipe, monkeypatch, server):
+    """The server itself guards its first launch; the stream server, which
+    takes no ``hbm_bytes``, against the device's memory."""
     frames = [np.zeros((480, 640), np.uint8)] * 2
     streams = [VideoStream(iter(frames), name=f"s{i}") for i in range(8)]
-    budget = 200 * 480 * 640 * serving.TWO_STAGE_BYTES_PER_PIXEL      # room for 200 frames
-    server = DeviceQueueServer(pipe, streams, chunk=32, hbm_bytes=budget)
-    with pytest.raises(ValueError, match="DeviceQueueServer chunk=32 x 8 streams"):
-        next(server.run())
+    if server == "DeviceQueueServer":
+        budget = 200 * 480 * 640 * serving.TWO_STAGE_BYTES_PER_PIXEL  # room for 200 frames
+        srv, match = (DeviceQueueServer(pipe, streams, chunk=32, hbm_bytes=budget),
+                      "DeviceQueueServer chunk=32 x 8 streams")
+    else:
+        budget = 4 * 480 * 640 * serving.TWO_STAGE_BYTES_PER_PIXEL    # room for 4 frames
+        monkeypatch.setattr(serving, "_device_bytes", lambda device: budget)
+        srv, match = StreamServer(pipe, streams), "StreamServer chunk=1 x 8 streams"
+    with pytest.raises(ValueError, match=match):
+        next(srv.run())
 
 
 def test_hbm_guard_budgets_hires_at_pooled_resolution():
