@@ -61,10 +61,14 @@ stopping at the first failure with a non-zero exit:
    limits);
 9. serving the pose path: each pipeline answers 8 requests of 256 unique
    frames through ``detect_with_pose``, and 4 through ``full_forward``, which
-   runs the tail eagerly and must give identical outputs; then the pose tail
-   alone on one batch's corners, run eagerly and replayed from the
-   pipeline's CUDA graph (host ms to enqueue, ms to finish, device
-   operations and their summed device time from ``torch.profiler``); one
+   must give identical outputs; then the pose tail alone on one batch's
+   corners at 256 and 56 frames, the pose kernel (``solve_pose``) against
+   the plain path (``solve_pnp_plain`` on the card): host ms to enqueue, ms
+   to finish, launches (``kernels.pnp_launches``: one a ``solve_pose`` call,
+   one a request), each path's device ms from a CUDA graph, the kernel's
+   bound (:func:`pnp_work`), and its agreement (``ok`` equal on frames of 5
+   corners or more; on those fitted within 1 px the float64 fit and the
+   reported RMS within 1e-4 px, the projections' gap logged); one
    profiled request for the card's busy share; hi-res requests (scale 2, 64
    frames of 480×640); and the patch gather's time and peak memory at the
    tap's sizes;
@@ -86,11 +90,12 @@ stopping at the first failure with a non-zero exit:
     through ``DeviceQueueServer(chunk=8)`` (the same 256-frame blocks), and
     the same batches through ``pipelined_map``, with and without pose: every
     result equal, bit for bit, to the synchronous call on the same batch
-    (two batches are in flight, so the pose graph's shared output buffers
-    would show here if they were read late); fps beside the synchronous
+    (two batches are in flight, so an output read after the next batch had
+    reused its memory would show here); fps beside the synchronous
     loop's, and the card's idle share under both from ``torch.profiler``
-    (the union of the device operations' intervals over their span); the
-    kernels' launch counts on the served paths; the geometry decode served
+    (the union of the device operations' intervals over their span); one
+    launch of B1 or B2, and with pose one of the pose kernel, a launched
+    step of each served path, counted per path; the geometry decode served
     against synchronous; and the peak bytes of device memory per input pixel
     of served batches (both paths, with and without pose, at 240×320, and
     480×640), which ``serving.TWO_STAGE_BYTES_PER_PIXEL`` must cover;
@@ -209,7 +214,7 @@ class SmokeFailure(Exception):
 
 
 B1, B2 = "kernels.b1_launches", "kernels.b2_launches"
-EPI = "kernels.epilogue_launches"
+EPI, PNP = "kernels.epilogue_launches", "kernels.pnp_launches"
 
 
 def launch_counts():
@@ -221,10 +226,17 @@ def launch_counts():
     return c.get(B1, 0), c.get(B2, 0)
 
 
+def pnp_launch_count():
+    """Pose kernel launches since :func:`reset_launches`."""
+    from deepcharuco_tpu_torch import profiling
+
+    return profiling.counters().get(PNP, 0)
+
+
 def reset_launches():
     from deepcharuco_tpu_torch import profiling
 
-    profiling.reset(B1, B2, EPI)
+    profiling.reset(B1, B2, EPI, PNP)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -302,6 +314,64 @@ def device_ops(fn):
     if not ops:
         return None, None
     return len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e3
+
+
+def pose_rms64(obj, img, valid, K, dist, rvec, tvec):
+    """Each frame's RMS reprojection error over its valid slots at the pose
+    (rvec, tvec), in float64 on the inputs' device (``tests/test_torch_cuda.py``
+    holds the pose kernel to the plain solver with it too)."""
+    import torch
+
+    from deepcharuco_tpu_torch.pnp import project_points
+
+    d = (project_points(obj.double(), rvec.double(), tvec.double(), K.double(), dist.double())
+         - torch.where(valid[..., None], img, 0.0).double())
+    v = valid.double()
+    return ((d * d).sum(-1) * v).sum(-1).div(v.sum(-1).clamp_min(1.0)).sqrt()
+
+
+PEAK_F32 = 67e12       # H100 SXM float32 FLOP/s without tensor cores
+
+
+def pnp_work(obj, img, valid, K, dist, iters):
+    """(float32 operations, bytes) of one pose solve of ``img`` (M, N, 2):
+    the operations ``solve_pnp_plain`` performs on the same inputs on the
+    CPU, each non-view ATen call counted as the elements of its largest
+    operand or output (twice the multiply-adds for a matrix product); the
+    bytes the kernel must read and write (points, mask, board, camera,
+    the four outputs)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from deepcharuco_tpu_torch.pnp import solve_pnp_plain
+
+    mm = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default}
+    free = ("empty", "zeros", "ones", "full", "fill", "copy", "clone", "_to_copy", "lift",
+            "arange", "scalar_tensor", "detach", "alias", "new_", "_local_scalar")
+
+    class Count(TorchDispatchMode):
+        flops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if func in mm:
+                a, b = args[0], args[1]
+                Count.flops += 2 * a.numel() * b.shape[-1]
+            elif not func.is_view and not name.startswith(free):
+                sizes = [t.numel() for t in tree_leaves((args, out))
+                         if isinstance(t, torch.Tensor)]
+                Count.flops += max(sizes, default=0)
+            return out
+
+    cpu = [t.cpu() for t in (obj, img, valid, K, dist)]
+    with Count():
+        solve_pnp_plain(*cpu, iters=iters)
+    m, n = img.shape[0], img.shape[1]
+    nbytes = (m * n * (2 * 4 + 1) + n * 3 * 4 + (9 + 12) * 4
+              + m * (1 + 3 * 4 + 3 * 4 + 4))
+    return Count.flops, nbytes
 
 
 def random_logits(rng):
@@ -818,6 +888,8 @@ def phase_pose_fixture(pipes, fix, dev):
         pose_agrees(f"phase 7 pose path [{name}] vs JAX bf16", out, ref, good)
         want = (1, 0) if name == "heads+decode" else (0, 1)
         require(counts == want, f"[{name}] kernel launches {counts}, expected {want}")
+        require(pnp_launch_count() == 1,
+                f"[{name}] {pnp_launch_count()} pose kernel launches in one request")
     # the solver alone, on the corners JAX found
     obj = next(iter(pipes.values())).object_points
     cam_lo = Camera(K=fix["K_hi"], dist=fix["dist"]).scaled(0.5)
@@ -897,16 +969,17 @@ def phase_pose_serve(pipes, hi_pipe, fix, rng, dev, detect_serve):
 
     from deepcharuco_tpu_torch.ops import extract_patches
     from deepcharuco_tpu_torch.pipeline import full_forward, two_stage_forward
-    from deepcharuco_tpu_torch.pnp import solve_pnp_batch
+    from deepcharuco_tpu_torch.pnp import project_points, solve_pnp, solve_pnp_plain
 
     requests = 8
     batches = make_batches(fix["frames"], requests * len(pipes), rng)
-    for pipe in pipes.values():          # warm-up: the pose tail's graph is captured here
+    for pipe in pipes.values():          # warm-up: cuDNN plans, the allocator
         pipe.detect_with_pose(batches[0])
     torch.cuda.synchronize()
     reset_launches()
     pose = {}
     for i, (name, pipe) in enumerate(pipes.items()):
+        before = pnp_launch_count()
         t0 = time.perf_counter()
         n_ok = 0
         for b in batches[i * requests:(i + 1) * requests]:
@@ -926,50 +999,102 @@ def phase_pose_serve(pipes, hi_pipe, fix, rng, dev, detect_serve):
             f"(detect alone, phase 5: {detect_serve[name]['ms_per_batch']:.3f}), "
             f"ok on {pose[name]['ok_share']:.3f} of the frames")
         require(n_ok >= N * requests // 2, f"[{name}] the pose path solved too few frames")
-    launches = {"decode": launch_counts()[0], "fused_head_decode": launch_counts()[1]}
+        require(pnp_launch_count() - before == requests,
+                f"[{name}] {pnp_launch_count() - before} pose kernel launches in {requests} "
+                "requests, expected one each")
+    launches = {"decode": launch_counts()[0], "fused_head_decode": launch_counts()[1],
+                "pnp": pnp_launch_count()}
     log(f"phase 9 launches on the pose path: {launches}")
     require(all(v >= requests for v in launches.values()),
             f"a kernel of the pose path was not launched: {launches}")
 
-    # the same path with the tail run eagerly: the functional entry point
+    # the same path through the functional entry point, whose tail is the same kernel
     pipe = pipes["heads+decode"]
-    eager_path = lambda b: tuple(t.cpu().numpy() for t in full_forward(
+    func_path = lambda b: tuple(t.cpu().numpy() for t in full_forward(
         pipe.detector, pipe.refinenet, b, N_IDS, pipe.object_points, fix["K"], fix["dist"],
         device=dev))
     same = all(np.array_equal(a, b, equal_nan=True) for a, b in
-               zip(eager_path(batches[0]), pipe.detect_with_pose(batches[0])))
-    require(same, "full_forward (eager tail) and detect_with_pose (graph) differ")
+               zip(func_path(batches[0]), pipe.detect_with_pose(batches[0])))
+    require(same, "full_forward and detect_with_pose differ")
     t0 = time.perf_counter()
     for b in batches[:4]:
-        eager_path(b)
-    eager_ms = 1e3 * (time.perf_counter() - t0) / 4
-    pose["heads+decode"]["eager_tail_ms_per_batch"] = eager_ms
-    log(f"phase 9 serve pose [heads+decode] through full_forward, the tail run eagerly: "
-        f"{eager_ms:.3f} ms/batch over 4 requests, outputs identical to the graph's")
+        func_path(b)
+    func_ms = 1e3 * (time.perf_counter() - t0) / 4
+    pose["heads+decode"]["full_forward_ms_per_batch"] = func_ms
+    log(f"phase 9 serve pose [heads+decode] through full_forward: {func_ms:.3f} ms/batch "
+        f"over 4 requests, outputs identical to detect_with_pose's")
 
-    # the pose tail alone, on one batch's corners
+    # the pose tail alone on one batch's corners, at the offline cells' 256 frames and
+    # the stream cell's 56: the pose kernel against the plain path on the card
     _, v, r = two_stage_forward(pipe.detector, pipe.refinenet, batches[0], N_IDS, device=dev)
     r, v = r.float().clone(), v.clone()
     K, dist = (torch.from_numpy(fix[k]).to(dev) for k in ("K", "dist"))
-    eager = lambda: solve_pnp_batch(pipe.object_points, r, v, K, dist)
-    graph = lambda: pipe.solve_pose(r, v)
     tail = {}
-    for tag, fn in (("eager", eager), ("graph", graph)):
-        fn()
-        host, wall = host_and_wall_ms(fn)
-        ops, busy = device_ops(fn)
-        tail[tag] = {"host_ms": host, "wall_ms": wall, "device_ops": ops,
-                     "device_busy_ms": busy}
-        log(f"phase 9 pose tail [{tag}], batch {N}: host {host:.3f} ms to enqueue, "
-            f"{wall:.3f} ms to finish, {ops} device operations, {busy:.3f} ms summed "
-            f"device time")
-    a, b = [t.clone() for t in eager()], graph()
-    torch.cuda.synchronize()
-    same = all(torch.equal(x, y) for x, y in zip(a, b))
-    log(f"phase 9 pose tail: graph replay bit-identical to eager: {same}; "
-        f"ok on {int(a[0].sum())} of {N}")
-    require(all(torch.allclose(x.float(), y.float(), atol=1e-6, equal_nan=True)
-                for x, y in zip(a, b)), "the pose tail's graph disagrees with eager")
+    for n in (N, 56):
+        rn, vn = r[:n].contiguous(), v[:n].contiguous()
+        # the pipeline's own camera tensors (12 coefficients): what solve_pose
+        # launches, and what the pose graph captured before the kernel
+        kern = lambda: solve_pnp(pipe.object_points, rn, vn, pipe._K, pipe._dist,
+                                 iters=pipe.pnp_iters)
+        fns = {"kernel": lambda: pipe.solve_pose(rn, vn),
+               "plain": lambda: solve_pnp_plain(pipe.object_points, rn, vn, pipe._K,
+                                                pipe._dist, iters=pipe.pnp_iters)}
+        ops = device_ops(kern)[0]
+        for tag, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            reset_launches()
+            host, wall = host_and_wall_ms(fn)
+            counts = launch_counts() + (pnp_launch_count(),)
+            tail[f"{tag}_{n}"] = {"host_ms": host, "wall_ms": wall,
+                                  "launches_b1_b2_pnp": counts}
+            log(f"phase 9 pose tail [{tag}], batch {n}: host {host:.3f} ms to enqueue, "
+                f"{wall:.3f} ms to finish (mean of 3 calls); B1/B2/pose kernel launches in "
+                f"the 3 calls {counts}")
+            want = (0, 0, 3) if tag == "kernel" else (0, 0, 0)
+            require(counts == want, f"the pose tail [{tag}] launched {counts}, expected {want}")
+        kernel_ms = graph_ms(kern)
+        plain_ms = graph_ms(fns["plain"], iters=2, replays=3)
+        flops, nbytes = pnp_work(pipe.object_points, rn, vn, pipe._K, pipe._dist,
+                                 pipe.pnp_iters)
+        t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        a, b = [t.cpu() for t in fns["plain"]()], [t.cpu() for t in fns["kernel"]()]
+        # frames the benchmark judges: 5 corners or more, fitted within 1 px; on
+        # fewer corners, or with a wrong-id corner, two float32 solvers may end
+        # in different minima or one of them in NaN (the plain one on the card
+        # and on the CPU do too)
+        many = vn.cpu().sum(-1) >= 5
+        held = a[0] & b[0] & many & (a[3] <= 1.0)
+        fit = lambda o: pose_rms64(pipe.object_points.cpu(), rn.cpu(), vn.cpu(), K.cpu(),
+                                   dist.cpu(), o[1], o[2])[held]
+        proj = lambda o: project_points(pipe.object_points.cpu().double(), o[1][held].double(),
+                                        o[2][held].double(), K.cpu().double(),
+                                        dist.cpu().double())
+        gaps = (proj(a) - proj(b)).norm(dim=-1).amax(-1)
+        fit_gap = float((fit(b) - fit(a)).abs().max()) if held.any() else 0.0
+        rms_gap = float((a[3][held] - b[3][held]).abs().max()) if held.any() else 0.0
+        tail[f"kernel_{n}"].update({
+            "device_ms": kernel_ms, "plain_device_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops,
+            "bytes": nbytes, "device_ops": ops, "ok_differs": int((a[0] != b[0]).sum()),
+            "ok_differs_5_or_more": int((a[0] != b[0])[many].sum()), "held": int(held.sum()),
+            "proj_gap_px_median": float(gaps.median()) if held.any() else 0.0,
+            "proj_gap_px_max": float(gaps.max()) if held.any() else 0.0,
+            "fit_gap_px": fit_gap, "rms_gap_px": rms_gap})
+        log(f"phase 9 pose kernel, batch {n}: {kernel_ms:.4f} ms a call on the device (CUDA "
+            f"graph of 20 calls), {ops} device operations a call (profiler; None: it recorded "
+            f"none); plain path {plain_ms:.4f} ms (CUDA graph of 2 calls); bound "
+            f"{bound_ms:.4f} ms ({flops / 1e6:.1f} MFLOP of the plain path at "
+            f"{PEAK_F32 / 1e12:.0f} TFLOP/s, {nbytes} bytes); ok on {int(b[0].sum())} of {n}; "
+            f"against the plain path: ok differs on {tail[f'kernel_{n}']['ok_differs']} ("
+            f"{tail[f'kernel_{n}']['ok_differs_5_or_more']} with 5 corners or more); on "
+            f"{int(held.sum())} frames fitted within 1 px projections apart by "
+            f"{tail[f'kernel_{n}']['proj_gap_px_median']:.3g} px (median), "
+            f"{tail[f'kernel_{n}']['proj_gap_px_max']:.3g} px (max), float64 RMS within "
+            f"{fit_gap:.3g} px, reported RMS within {rms_gap:.3g} px")
+        require(tail[f"kernel_{n}"]["ok_differs_5_or_more"] == 0 and fit_gap <= 1e-4
+                and rms_gap <= 1e-4, "the pose kernel disagrees with the plain path")
     # one profiled request: the card's busy share of the pose path
     for name, p in pipes.items():
         ops, busy = device_ops(lambda: p.detect_with_pose(batches[1]))
@@ -1275,9 +1400,12 @@ def phase_streams(pipes, geom_pipes, fix, rng, dev):
                 "pipelined_map": lambda: list(pipelined_map(
                     lambda x: pipe.forward_device(x, with_pose), batches, device=dev)),
             }
-            reset_launches()
-            got = {k: run() for k, run in runs.items()}     # also the warm-up
-            launches[tag] = launch_counts()
+            got, per_run = {}, {}
+            for k, run in runs.items():                     # also the warm-up
+                reset_launches()
+                got[k] = run()
+                per_run[k] = launch_counts() + (pnp_launch_count(),)
+            launches[tag] = tuple(sum(c[i] for c in per_run.values()) for i in range(3))
             require(len(got["StreamServer"]) == steps
                     and len(got["DeviceQueueServer"]) == steps * chunk
                     and len(got["pipelined_map"]) == steps, f"[{tag}] wrong number of steps")
@@ -1294,9 +1422,13 @@ def phase_streams(pipes, geom_pipes, fix, rng, dev):
             log(f"phase 12 [{tag}]: StreamServer ({N} streams × {steps} steps), "
                 f"DeviceQueueServer ({few} streams × {steps * chunk} steps, chunk {chunk}) and "
                 f"pipelined_map equal the synchronous calls bit for bit on {steps} batches; "
-                f"launches decode/fused {launches[tag]}")
-            want_l = (3 * steps, 0) if name == "heads+decode" else (0, 3 * steps)
-            require(launches[tag] == want_l, f"[{tag}] kernel launches {launches[tag]}")
+                f"launches B1/B2/pose kernel {per_run}")
+            # one launch of each kernel a launched step: StreamServer's and
+            # pipelined_map's 8 steps, DeviceQueueServer's 8 blocks of 8 steps
+            want_l = ((steps, 0) if name == "heads+decode" else (0, steps)) \
+                + (steps if with_pose else 0,)
+            require(all(c == want_l for c in per_run.values()),
+                    f"[{tag}] B1/B2/pose kernel launches {per_run}, expected {want_l} each")
             runs = {"synchronous": lambda: [call(b) for b in batches], **runs}
             fps = {k: [] for k in runs}
             for _ in range(2):
@@ -1324,7 +1456,10 @@ def phase_streams(pipes, geom_pipes, fix, rng, dev):
         want = [pipe.detect_with_pose(b) for b in batches]
         runs = {"synchronous": lambda: [pipe.detect_with_pose(b) for b in batches],
                 "StreamServer": lambda: list(StreamServer(pipe, wide(), True).run())}
+        reset_launches()
         stream_server_equal(tag, runs["StreamServer"](), want, RESULT_KEYS)
+        require(pnp_launch_count() == steps,
+                f"[{tag}] {pnp_launch_count()} pose kernel launches in {steps} steps")
         fps = {k: [] for k in runs}
         for _ in range(2):
             for k, run in runs.items():
@@ -2913,8 +3048,17 @@ def main() -> int:
                     "build_s": build_s, "pose": pose, "geom": geom, "int8": int8,
                     "streams": streams, "train": train, "entry_points": entry,
                     "host": host, "calib_view": calib_view, "parallel": parallel}))
+    k256, k56 = pose["tail"][f"kernel_{N}"], pose["tail"]["kernel_56"]
+    pnp_row = {"name": "pnp", "route": "cuda", "source": "deepcharuco_tpu_torch/csrc/pnp.cu",
+               "replaces": None, "launches": pose_launches["pnp"],
+               "ms": k256["device_ms"], "plain_ms": k256["plain_device_ms"],
+               "bound_ms": k256["bound_ms"], "bound_by": k256["bound_by"], "library_ms": None,
+               "host_ms": k256["host_ms"], "device_launches_per_call": k256["device_ops"],
+               "n56_ms": k56["device_ms"], "n56_plain_ms": k56["plain_device_ms"],
+               "n56_bound_ms": k56["bound_ms"], "n56_host_ms": k56["host_ms"],
+               "launches_served_paths": sum(v[2] for v in stream_launches.values())}
     log(smi())
-    log(json.dumps({"kernels": rows + [epilogue, epilogue_no_norm]}))
+    log(json.dumps({"kernels": rows + [epilogue, epilogue_no_norm, pnp_row]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-KERNELS = ("decode", "fused_head_decode", "conv_epilogue")
+KERNELS = ("decode", "fused_head_decode", "conv_epilogue", "pnp")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}

@@ -7,8 +7,7 @@ batches); the loop keeps ``--depth`` batches in flight and copies every
 result to the host. The copies go into pinned memory on the compute
 stream, right behind the batch that makes them, and the host waits on each
 batch's event (``serving._Lane``): a plain ``.cpu()`` of the oldest result
-would queue behind the newer batch and make depth 2 serial, and the pose
-graph's outputs are overwritten by the next replay. ``--fetch refined``
+would queue behind the newer batch and make depth 2 serial. ``--fetch refined``
 copies the refined corners only.
 
 Paths: two-stage (default), ``--with-pose``, ``--hires``, the geometry

@@ -1,7 +1,7 @@
 """Board pose over a video's frames (``deepcharuco_tpu.cli.pose_video``).
 
 Frames go through the pipeline in device batches (detect + batched PnP in
-one call, the pose tail replayed from a CUDA graph on the card); the poses
+one call, the pose tail one kernel launch on the card); the poses
 can be made robust (``--ransac``: the port's ``pnp.ransac``, subsets drawn
 from a ``torch.Generator`` seeded 0) and smoothed over time (``--smooth``:
 ``pose_filter.PoseFilter``). The frames, corners and axes are then drawn

@@ -38,9 +38,9 @@ the conversion.
 Spans (``profiling``): ``pipeline.detector``, ``pipeline.decode``,
 ``pipeline.patches``, ``pipeline.refinenet`` around each stage's enqueue,
 and ``pipeline.pose`` around :meth:`InferencePipeline.solve_pose` (on the
-card with events on the stream: the copy into the graph's inputs and the
-replay). Counters: ``pipeline.frames`` through
-:meth:`InferencePipeline.forward_device`, ``pipeline.pose_captures``.
+card with events on the stream around the pose kernel's launch). Counter:
+``pipeline.frames`` through :meth:`InferencePipeline.forward_device`; the
+pose kernel counts its launches (``kernels.pnp_launches``).
 """
 
 from __future__ import annotations
@@ -66,6 +66,7 @@ from deepcharuco_tpu_torch.ops import (downsample2x, extract_patches,
                                        refine_keypoints, refine_keypoints_soft)
 from deepcharuco_tpu_torch.ops.cuda_fused import fused_head_decode, head_params
 from deepcharuco_tpu_torch.pnp import solve_pnp_batch
+from deepcharuco_tpu_torch.pnp.projection import _dist12
 from deepcharuco_tpu_torch.weights import (detector_state_dict, detector_variables,
                                            load_state,
                                            refinenet_state_dict, refinenet_variables,
@@ -112,11 +113,6 @@ class Camera:
         K[0, 2] = (K[0, 2] + 0.5) * factor - 0.5
         K[1, 2] = (K[1, 2] + 0.5) * factor - 0.5
         return Camera(K=K, dist=self.dist)
-
-
-# CUDA graphs of the pose tail that an InferencePipeline keeps, one per batch
-# size (a server's last, shorter batch gets its own).
-_MAX_POSE_GRAPHS = 8
 
 
 # How far a RefineNet correction may move a homography-filled corner before
@@ -590,11 +586,11 @@ class InferencePipeline:
             geom_board_xy=self.object_points[:, :2] if geom_decode else None,
             geom_fill=geom_fill, geom_ransac=geom_ransac,
             geom_noise=None if geom_noise is None else tuple(as_dev(t) for t in geom_noise))
-        self._pose_graphs: Dict[int, tuple] = {}
         profiling.anchor(self.device)
         if camera is not None:
             cam = camera.scaled(1.0 / self.hires_scale) if self.hires else camera
-            self._K, self._dist = as_dev(cam.K), as_dev(cam.dist)
+            # the 12 coefficients the pose kernel reads, padded once here
+            self._K, self._dist = as_dev(cam.K), _dist12(cam.dist, self.device)
 
     @property
     def hires(self) -> bool:
@@ -627,49 +623,11 @@ class InferencePipeline:
     def solve_pose(self, refined: torch.Tensor, valid: torch.Tensor):
         """Batched PnP on the pipeline's camera: corners (N, n_ids, 2) float32
         and their mask, on the pipeline's device → (ok, rvec, tvec,
-        reproj_rms). On the card the solver is replayed from a CUDA graph
-        captured once per batch size: it is several thousand small
-        operations with static shapes and no host synchronisation, and run
-        eagerly it is bound by the host's launches. The outputs are then the
-        graph's own buffers, valid until the next call, so one pipeline
-        serves one thread at a time."""
-        solve = lambda r, v: _solve(self.object_points, r, v, self._K, self._dist,
-                                    self.pnp_iters)
-        if refined.device.type != "cuda":
-            with profiling.span("pipeline.pose"):
-                return solve(refined, valid)
-        n = refined.shape[0]
-        entry = self._pose_graphs.pop(n, None)
-        if entry is None:
-            if len(self._pose_graphs) >= _MAX_POSE_GRAPHS:      # drop the oldest
-                self._pose_graphs.pop(next(iter(self._pose_graphs)))
-            with torch.cuda.device(refined.device):
-                entry = self._capture_pose(solve, refined, valid)
-        self._pose_graphs[n] = entry                            # newest last
-        graph, r_in, v_in, out = entry
-        with profiling.span("pipeline.pose", device=True):
-            r_in.copy_(refined)
-            v_in.copy_(valid)
-            graph.replay()
-        return out
-
-    @staticmethod
-    def _capture_pose(solve, refined, valid):
-        """(graph, its two input buffers, its outputs) of ``solve`` at the
-        shapes of ``refined``/``valid``, captured on the current device."""
-        profiling.count("pipeline.pose_captures")
-        r_in, v_in = torch.zeros_like(refined), torch.zeros_like(valid)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):           # warm-up outside the capture
-            solve(r_in, v_in)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: another thread's CUDA calls (a server's upload
-        # thread) do not invalidate the capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = solve(r_in, v_in)
-        return graph, r_in, v_in, out
+        reproj_rms), new tensors. On the card one launch of the pose kernel
+        (``pnp.solve_pnp``) on the current stream, nothing else."""
+        with profiling.span("pipeline.pose", device=refined.is_cuda):
+            return _solve(self.object_points, refined, valid, self._K, self._dist,
+                          self.pnp_iters)
 
     @torch.inference_mode()
     def forward_device(self, frames, with_pose: bool = False):
@@ -677,10 +635,9 @@ class InferencePipeline:
         pipeline's device, or anything :func:`two_stage_forward` takes) →
         the tuple of :meth:`detect` or :meth:`detect_with_pose` as tensors on
         the device. Everything is enqueued on the current stream; nothing is
-        copied to the host and the host waits for nothing. With pose on the
-        card the last four are the pose graph's own buffers
-        (:meth:`solve_pose`): read or copy them, in stream order, before the
-        next call."""
+        copied to the host and the host waits for nothing. Every output is a
+        new tensor, the pose's included: it stays valid after the next
+        call."""
         if with_pose and self.camera is None:
             raise ValueError("InferencePipeline was built without a Camera")
         profiling.count("pipeline.frames", len(frames))

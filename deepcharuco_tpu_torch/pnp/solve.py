@@ -6,18 +6,29 @@ mask, and fewer than 4 valid points, or a degenerate constellation, end in
 ``ok=False``. Batch-first: image points and masks carry any leading
 dimensions (frames; frames × hypotheses in the RANSAC variant), the object
 points and the camera are shared. The two LM starts of a frame (the
-homography pose and its planar twin) run as one batch twice the size. The
-solver never synchronises with the host and branches on no data, so it can
-be captured in a CUDA graph.
+homography pose and its planar twin) run as one batch twice the size.
+
+:func:`solve_pnp` launches the pose kernel (``csrc/pnp.cu``: one block a
+frame, the same algorithm in float32) for CUDA tensors and runs
+:func:`solve_pnp_plain` for CPU tensors; nothing else chooses between
+them. Each launch adds one to the counter ``kernels.pnp_launches``
+(``profiling``). RANSAC (``pnp/ransac.py``) and the geometry decode
+(``ops/geom.py``) call the plain internals (:func:`_dlt_homography`,
+:func:`_lm_refine`) on problems of other shapes. With its inputs on the
+card neither path synchronises with the host.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
 
+from deepcharuco_tpu_torch import _build, profiling
 from deepcharuco_tpu_torch.pnp.projection import (
+    _dist12,
     _dist_terms,
     matmul_small,
     project_points_jacobian,
@@ -33,6 +44,7 @@ from deepcharuco_tpu_torch.pnp.smallmath import (
 )
 
 _EPS = 1e-12
+MAX_POINTS = 4096                 # the kernel's shared memory holds 2 floats a point
 
 
 def _normalization_transform(pts: torch.Tensor, w: torch.Tensor):
@@ -160,25 +172,10 @@ def _finish(ok, rvec, tvec, cost, n_points):
 
 
 @torch.no_grad()
-def solve_pnp(object_points: torch.Tensor, image_points: torch.Tensor,
-              valid: torch.Tensor, K: torch.Tensor, dist, iters: int = 20):
-    """Planar PnP at fixed capacity, for one frame or any batch of frames.
-
-    Parameters
-    ----------
-    object_points : (N, 3) board points (z=0 plane), slot k = corner id k.
-    image_points : (..., N, 2) detected pixels (same slots).
-    valid : (..., N) bool slot occupancy.
-    K : (3, 3) camera matrix;  dist : 4/5/8/12 cv2 coefficients.
-
-    Returns
-    -------
-    ok : (...,) bool — at least 4 valid points that span two dimensions,
-        and a finite result.
-    rvec, tvec : (..., 3) each — cv2 conventions; zeros when not ok.
-    reproj_rms : (...,) float — RMS masked reprojection error in pixels,
-        +inf when not ok.
-    """
+def solve_pnp_plain(object_points: torch.Tensor, image_points: torch.Tensor,
+                    valid: torch.Tensor, K: torch.Tensor, dist, iters: int = 20):
+    """:func:`solve_pnp` in plain PyTorch, on the tensors' own device: the
+    pose kernel's algorithm, step for step."""
     object_points = object_points.float()
     K = K.float()
     dist = _dist_terms(dist, image_points.device)
@@ -223,6 +220,91 @@ def solve_pnp(object_points: torch.Tensor, image_points: torch.Tensor,
     tvec = torch.where(pick_a[..., None], tv[0], tv[1])
     cost = torch.where(pick_a, cost[0], cost[1])
     return _finish(ok, rvec, tvec, cost, n_valid)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    lib = _build.library("pnp")
+    fn = lib.dc_pnp
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _solve_pnp_kernel(object_points, image_points, valid, K, dist, iters):
+    """One launch of the pose kernel on the current stream; outputs are new
+    tensors, shaped as :func:`solve_pnp_plain`'s."""
+    dev = image_points.device
+    n = image_points.shape[-2] if image_points.dim() >= 2 else -1
+    lead = image_points.shape[:-2]
+    if (image_points.dtype != torch.float32 or image_points.dim() < 2
+            or image_points.shape[-1] != 2 or not image_points.is_contiguous()
+            or not 0 <= n <= MAX_POINTS):
+        raise ValueError("pnp kernel: image points must be a contiguous float32 (..., N, 2) "
+                         f"tensor with N up to {MAX_POINTS}, got {image_points.dtype} "
+                         f"{tuple(image_points.shape)} strides {image_points.stride()}")
+    if valid.dtype != torch.bool or valid.device != dev or valid.shape != (*lead, n) \
+            or not valid.is_contiguous():
+        raise ValueError(f"pnp kernel: valid must be a contiguous bool {(*lead, n)} tensor "
+                         f"on {dev}, got {valid.dtype} {tuple(valid.shape)} on {valid.device}")
+    object_points, K = object_points.float().contiguous(), K.float().contiguous()
+    dist = _dist12(dist, dev).contiguous()
+    if object_points.device != dev or object_points.shape != (n, 3):
+        raise ValueError(f"pnp kernel: object points must be ({n}, 3) on {dev}, got "
+                         f"{tuple(object_points.shape)} on {object_points.device}")
+    if K.device != dev or K.shape != (3, 3):
+        raise ValueError(f"pnp kernel: K must be (3, 3) on {dev}, got {tuple(K.shape)} "
+                         f"on {K.device}")
+    if not isinstance(iters, int) or iters < 0:
+        raise ValueError(f"pnp kernel: iters must be a whole number >= 0, got {iters!r}")
+    m = math.prod(lead)
+    ok = torch.empty(lead, dtype=torch.bool, device=dev)
+    rvec = torch.empty((*lead, 3), dtype=torch.float32, device=dev)
+    tvec, rms = torch.empty_like(rvec), torch.empty(lead, dtype=torch.float32, device=dev)
+    if m == 0:
+        return ok, rvec, tvec, rms
+    lib, fn = _fn()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    args = (image_points.data_ptr(), valid.data_ptr(), object_points.data_ptr(), K.data_ptr(),
+            dist.data_ptr(), m, n, iters, ok.data_ptr(), rvec.data_ptr(), tvec.data_ptr(),
+            rms.data_ptr(), torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        status = fn(*args)
+    if status != 0:
+        raise RuntimeError(f"pnp kernel: {_build.error_string(lib, status)}")
+    profiling.count("kernels.pnp_launches")
+    return ok, rvec, tvec, rms
+
+
+def solve_pnp(object_points: torch.Tensor, image_points: torch.Tensor,
+              valid: torch.Tensor, K: torch.Tensor, dist, iters: int = 20):
+    """Planar PnP at fixed capacity, for one frame or any batch of frames:
+    one launch of the pose kernel on the current stream (CUDA tensors), or
+    :func:`solve_pnp_plain` (CPU tensors).
+
+    Parameters
+    ----------
+    object_points : (N, 3) board points (z=0 plane), slot k = corner id k.
+    image_points : (..., N, 2) detected pixels (same slots).
+    valid : (..., N) bool slot occupancy.
+    K : (3, 3) camera matrix;  dist : 4/5/8/12 cv2 coefficients.
+
+    On the card the image points are contiguous float32, ``valid``
+    contiguous bool, N at most :data:`MAX_POINTS` and every tensor on the
+    image points' card; a ``ValueError`` names what the kernel does not
+    take.
+
+    Returns
+    -------
+    ok : (...,) bool — at least 4 valid points that span two dimensions,
+        and a finite result.
+    rvec, tvec : (..., 3) each — cv2 conventions; zeros when not ok.
+    reproj_rms : (...,) float — RMS masked reprojection error in pixels,
+        +inf when not ok.
+    """
+    if not image_points.is_cuda:
+        return solve_pnp_plain(object_points, image_points, valid, K, dist, iters=iters)
+    return _solve_pnp_kernel(object_points, image_points, valid, K, dist, iters)
 
 
 def solve_pnp_batch(object_points, image_points, valid, K, dist, iters: int = 20):

@@ -5,8 +5,8 @@ N independent video streams go through one
 :class:`~deepcharuco_tpu_torch.pipeline.InferencePipeline` with
 
 - **batch aggregation**: one frame of every live stream forms one device
-  batch, padded to a fixed capacity (one set of cuDNN plans and one pose
-  graph per server, not one per batch size);
+  batch, padded to a fixed capacity (one set of cuDNN plans per server, not
+  one per batch size);
 - **transfers that overlap compute**: a batch is gathered, uploaded and
   launched while the one before it may still run, and the host waits only
   for the batch it is about to hand out;
@@ -38,11 +38,11 @@ pinned staging buffers (as many as batches in flight, reused; an event
 guards the reuse) and uploaded on a copy stream; the compute stream waits on
 the upload's event. Each batch's device-to-host copies go into pinned host
 tensors on the compute stream, right behind its compute, and an event is
-recorded after them. That order matters: the pose tail's outputs are the
-buffers of one CUDA graph (``InferencePipeline.solve_pose``), which the
-next batch's replay overwrites, so they are copied out before it in stream
-order. Handing a batch out waits on its event and on nothing else. On the
-CPU the same code runs without streams, and a launched batch is ready.
+recorded after them: in stream order nothing later can overwrite an output
+before its copy has read it, even once the output's memory is freed and
+handed to the next batch. Handing a batch out waits on its event and on
+nothing else. On the CPU the same code runs without streams, and a
+launched batch is ready.
 
 Spans (``profiling``), one set per step or batch, under its id:
 ``serving.step`` from the first pull to the hand-out, its device end the
@@ -395,13 +395,13 @@ class DeviceQueueServer:
     """Multi-stream serving in blocks: ``chunk`` consecutive frames of every
     live stream form one ``(chunk·B, H, W)`` block, padded with zero frames
     to ``chunk`` × the number of streams (one shape for the whole run: one
-    set of cuDNN plans and one pose graph), one upload and one launch of the
+    set of cuDNN plans), one upload and one launch of the
     pipeline's device-level entry (``InferencePipeline.forward_device``).
     The pull thread pulls the next block while one is in flight, a block
     whose frames come first is launched first, so up to two blocks are in
     flight, and a block is handed out as soon as its results reach the host
     (:func:`_serve`). The launch's fixed costs (the host's work per batch,
-    the pose graph's replay) are shared by ``chunk`` steps at the price of
+    the pose kernel's launch) are shared by ``chunk`` steps at the price of
     ``chunk`` frame intervals of latency. :meth:`run` yields one dict of
     per-stream results per step. The server runs on the pipeline's device.
 

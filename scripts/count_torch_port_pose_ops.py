@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Count the operations of the port's pose tail, on the CPU.
+"""Count the operations of the port's plain pose tail, on the CPU.
 
-Runs ``pnp.solve_pnp_batch`` on 256 synthetic views under
+On the card the pose tail is one kernel launch (``csrc/pnp.cu``); this
+counts what its plain version (``pnp.solve_pnp_plain``) would launch there.
+Runs ``pnp.solve_pnp_batch`` on CPU tensors for 256 synthetic views under
 ``torch.profiler`` and prints how many ``aten`` calls it makes, all of them
 and those that are not views or allocations (nested calls included, so the
 second figure is an upper estimate of the kernels the same call launches on

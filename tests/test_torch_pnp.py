@@ -416,6 +416,26 @@ def test_solve_pnp_single_frame_equals_its_row_in_a_batch(exact_case):
         np.testing.assert_allclose(a.numpy(), b[2], atol=1e-5)
 
 
+def test_solve_pnp_on_cpu_tensors_is_the_plain_path_and_launches_nothing(exact_case,
+                                                                       monkeypatch):
+    """CPU tensors never reach the pose kernel: no library is built or
+    loaded, no launch is counted, and the answer is ``solve_pnp_plain``'s,
+    bit for bit."""
+    from deepcharuco_tpu_torch import _build, profiling
+
+    def refuse(name):
+        raise AssertionError(f"the CPU path asked for the {name} kernel")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    _, _, img, valid, _, _ = exact_case
+    before = profiling.counters().get("kernels.pnp_launches", 0)
+    got = TS.solve_pnp(_t(OBJ), _t(img), _t(valid), _t(K), _t(DISTS[5]))
+    assert profiling.counters().get("kernels.pnp_launches", 0) == before
+    want = TS.solve_pnp_plain(_t(OBJ), _t(img), _t(valid), _t(K), _t(DISTS[5]))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 # --------------------------------------------------------------- ransac
 
 @pytest.mark.parametrize("outliers", [0, 2])

@@ -211,7 +211,7 @@ def test_servers_record_one_step_per_step_and_count_rows(pipe, server):
     assert _delta(before, "serving.rows") == rows
     assert _delta(before, "serving.padded_rows") == launches * capacity - rows
     assert _delta(before, "pipeline.frames") == launches * capacity
-    assert _delta(before, "pipeline.pose_captures") == 0       # no graph on the CPU
+    assert _delta(before, "kernels.pnp_launches") == 0        # no kernel on the CPU
 
 
 @pytest.mark.parametrize("source", ["ready", "busy", "gated"])
